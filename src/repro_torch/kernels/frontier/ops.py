@@ -1,0 +1,163 @@
+"""Wrappers of the Hopper frontier kernels (``csrc/frontier.cu``).
+
+They replace the TPU kernels of ``repro/kernels/frontier``: the serial
+``compact_kernel``/``dedup_kernel``/``lookup_kernel``/``perm_kernel``
+(``frontier.py``) and the grid-parallel ``compact_tiles_kernel``/
+``dedup_tiles_kernel``/``dedup_merge_kernel``/``lookup_batched_kernel``/
+``sort_packed_kernel``/``sort_pairs_kernel`` (``parallel.py``). One
+design per contract; both TPU variants are held to the same contract.
+
+On a CPU tensor each wrapper runs the plain version in ``ref.py``; on a
+CUDA tensor it checks device, dtype, shape and contiguity, allocates
+outputs and scratch at the static caps (no host sync sizes anything),
+launches on the current stream, raises if the launch failed, and adds
+one to its entry of :data:`LAUNCHES`. ``n_live`` (an int32 device
+scalar, optional) bounds the work by the real count: entries at index
+>= n_live must be masked, and the kernels stop there.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.frontier import ref
+from repro_torch.kernels.frontier.ref import DedupResult
+
+#: kernel launches per wrapper since the last :func:`reset_launches`
+LAUNCHES = {"compact": 0, "hash_dedup": 0, "compact_perm": 0}
+
+_COMPACT_TILE = 4096   # kThreads * kCompactItems in frontier.cu
+_RADIX_TILE = 2048     # kThreads * kRadixItems
+_RADIX = 256
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(name: str, t: torch.Tensor, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D tensor")
+
+
+def _check_live(n_live: Optional[torch.Tensor], device) -> None:
+    if n_live is None:
+        return
+    if (n_live.device != device or n_live.dtype != torch.int32
+            or n_live.numel() != 1):
+        raise ValueError("n_live must be one int32 element on the device "
+                         "of the inputs")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _i32(n: int, device) -> torch.Tensor:
+    return torch.empty(max(n, 1), dtype=torch.int32, device=device)
+
+
+def compact(flags: torch.Tensor, cap: int,
+            n_live: Optional[torch.Tensor] = None):
+    """Order-preserving stream compaction (contract: ``ref.compact``)."""
+    if flags.device.type == "cpu":
+        return ref.compact(flags, cap)
+    dev = flags.device
+    _check("flags", flags, torch.bool, dev)
+    _check_live(n_live, dev)
+    E = flags.shape[0]
+    sel = torch.empty(cap, dtype=torch.int32, device=dev)
+    emask = torch.empty(cap, dtype=torch.bool, device=dev)
+    num = torch.empty((), dtype=torch.int32, device=dev)
+    tile_counts = _i32(-(-E // _COMPACT_TILE), dev)
+    status = _build.function("frontier_compact")(
+        _build.ptr(flags), E, _build.ptr(n_live), cap, _build.ptr(sel),
+        _build.ptr(emask), _build.ptr(num), _build.ptr(tile_counts),
+        _stream(dev))
+    _build.check(status, "frontier_compact")
+    LAUNCHES["compact"] += 1
+    return sel, emask, num
+
+
+def compact_perm(keys: torch.Tensor, valid: torch.Tensor, num_keys: int,
+                 n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stable permutation by ascending key, invalid last (contract:
+    ``ref.compact_perm``): an LSD radix sort of ``key + 1`` with the
+    index as payload."""
+    if keys.device.type == "cpu":
+        return ref.compact_perm(keys, valid, num_keys)
+    dev = keys.device
+    _check("keys", keys, torch.int32, dev)
+    _check("valid", valid, torch.bool, dev)
+    _check_live(n_live, dev)
+    E = keys.shape[0]
+    if valid.shape[0] != E:
+        raise ValueError("keys and valid differ in length")
+    bits = (num_keys + 1).bit_length()
+    perm = torch.empty(E, dtype=torch.int32, device=dev)
+    ka, va, kb, vb = (_i32(E, dev) for _ in range(4))
+    hist = _i32(_RADIX * max(1, -(-E // _RADIX_TILE)), dev)
+    totals = _i32(_RADIX, dev)
+    status = _build.function("frontier_compact_perm")(
+        _build.ptr(keys), _build.ptr(valid), E, _build.ptr(n_live),
+        num_keys, bits, _build.ptr(perm), _build.ptr(ka), _build.ptr(va),
+        _build.ptr(kb), _build.ptr(vb), _build.ptr(hist),
+        _build.ptr(totals), _stream(dev))
+    _build.check(status, "frontier_compact_perm")
+    LAUNCHES["compact_perm"] += 1
+    return perm
+
+
+def _pow2_at_least(x: int) -> int:
+    p = 8
+    while p < x:
+        p *= 2
+    return p
+
+
+def hash_dedup(values: torch.Tensor, mask: torch.Tensor,
+               seeds: Optional[torch.Tensor], new_cap: int,
+               n_live: Optional[torch.Tensor] = None) -> DedupResult:
+    """Dedup against ``seeds`` + value -> slot lookup (contract:
+    ``ref.hash_dedup``, overflow included): an atomicCAS open-addressing
+    table, a radix sort of the collected new values, one probe per
+    value."""
+    if values.device.type == "cpu":
+        return ref.hash_dedup(values, mask, seeds, new_cap)
+    dev = values.device
+    _check("values", values, torch.int32, dev)
+    _check("mask", mask, torch.bool, dev)
+    if seeds is not None:
+        _check("seeds", seeds, torch.int32, dev)
+    _check_live(n_live, dev)
+    E = values.shape[0]
+    if mask.shape[0] != E:
+        raise ValueError("values and mask differ in length")
+    S = 0 if seeds is None else seeds.shape[0]
+    table_cap = _pow2_at_least(2 * (S + E))
+    tbl_keys, tbl_vals = _i32(table_cap, dev), _i32(table_cap, dev)
+    raw_a, raw_b = _i32(E, dev), _i32(E, dev)
+    hist = _i32(_RADIX * max(1, -(-E // _RADIX_TILE)), dev)
+    totals, meta = _i32(_RADIX, dev), _i32(8, dev)
+    new = torch.empty(new_cap, dtype=torch.int32, device=dev)
+    slots = torch.empty(E, dtype=torch.int32, device=dev)
+    num_new = torch.empty((), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    status = _build.function("frontier_hash_dedup")(
+        _build.ptr(values), _build.ptr(mask), E, _build.ptr(n_live),
+        _build.ptr(seeds), S, new_cap, table_cap, _build.ptr(tbl_keys),
+        _build.ptr(tbl_vals), _build.ptr(raw_a), _build.ptr(raw_b),
+        _build.ptr(hist), _build.ptr(totals), _build.ptr(meta),
+        _build.ptr(new), _build.ptr(slots), _build.ptr(num_new),
+        _build.ptr(overflow), _stream(dev))
+    _build.check(status, "frontier_hash_dedup")
+    LAUNCHES["hash_dedup"] += 1
+    return DedupResult(new=new, slots=slots, num_new=num_new,
+                       overflow=overflow)

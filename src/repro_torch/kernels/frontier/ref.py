@@ -1,0 +1,106 @@
+"""Plain PyTorch versions of the frontier primitives (twin of
+``repro.kernels.frontier.ref``).
+
+Each function is the contract its CUDA kernel in ``csrc/frontier.cu`` is
+held to, and what the kernel wrappers run on a CPU tensor. Nothing here
+is sized by the graph's vertex count, and nothing syncs with the host.
+
+Bit-compatibility contracts (relied on by the sampler parity tests):
+
+  * ``hash_dedup`` returns the unique new values in ASCENDING order; on
+    overflow ``new`` holds the smallest ``new_cap`` of them, ``num_new``
+    stays exact and a dropped value's slot is -1;
+  * ``compact`` preserves arrival order (``jnp.nonzero(size=cap,
+    fill_value=0)``);
+  * ``compact_perm`` is a STABLE by-key ordering, invalid entries last.
+
+The ``n_live`` argument of each primitive is a hint for the kernels
+(entries at index >= n_live are masked); these versions do not need it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+_INT_MAX = 2**31 - 1
+
+
+class DedupResult(NamedTuple):
+    """new int32[new_cap] unique new values, ascending, -1 pad;
+    slots int32[E] index of values[e] in ``[seeds ; new]`` (-1 where
+    masked or dropped); num_new int32[] exact distinct count;
+    overflow bool[] num_new > new_cap."""
+    new: torch.Tensor
+    slots: torch.Tensor
+    num_new: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _seed_member(values, valid, seeds):
+    """bool[E]: values[e] appears among the valid entries of seeds."""
+    S = seeds.shape[0]
+    sseeds = torch.sort(torch.where(seeds >= 0, seeds, _INT_MAX)).values
+    j = torch.clamp(torch.searchsorted(sseeds, values), 0, S - 1)
+    return valid & (sseeds[j] == values)
+
+
+def hash_dedup(values: torch.Tensor, mask: torch.Tensor,
+               seeds: Optional[torch.Tensor], new_cap: int,
+               n_live: Optional[torch.Tensor] = None) -> DedupResult:
+    """Deduplicate masked ``values`` against ``seeds`` (unique ids, -1
+    pad) and build the value -> slot lookup of ``[seeds ; new]``, with
+    cap-bounded sorts."""
+    del n_live
+    E = values.shape[0]
+    dev = values.device
+    valid = mask & (values >= 0)
+    valid_new = (valid & ~_seed_member(values, valid, seeds)
+                 if seeds is not None else valid)
+
+    sc = torch.sort(torch.where(valid_new, values, _INT_MAX)).values
+    first = torch.ones(min(E, 1), dtype=torch.bool, device=dev)
+    uniq = (sc != _INT_MAX) & torch.cat([first, sc[1:] != sc[:-1]])
+    num_new = uniq.sum(dtype=torch.int32)
+    pos = torch.cumsum(uniq.to(torch.int32), 0, dtype=torch.int32) - 1
+    tgt = torch.where(uniq & (pos < new_cap), pos, new_cap).long()
+    new = torch.full((new_cap + 1,), -1, dtype=torch.int32, device=dev)
+    new = new.scatter_(0, tgt, torch.where(uniq, sc, -1))[:-1]
+
+    new_keys = torch.where(new >= 0, new, _INT_MAX)
+    tbl = (torch.cat([torch.where(seeds >= 0, seeds, _INT_MAX), new_keys])
+           if seeds is not None else new_keys)
+    order = torch.argsort(tbl, stable=True)
+    tv = tbl[order]
+    j = torch.clamp(torch.searchsorted(tv, values), 0, tv.shape[0] - 1)
+    found = valid & (tv[j] == values)
+    slots = torch.where(found, order[j].to(torch.int32), -1)
+    return DedupResult(new=new, slots=slots, num_new=num_new,
+                       overflow=num_new > new_cap)
+
+
+def compact(flags: torch.Tensor, cap: int,
+            n_live: Optional[torch.Tensor] = None):
+    """Order-preserving stream compaction: (sel int32[cap] indices of
+    the first ``cap`` set flags, 0 past the end; emask bool[cap];
+    num int32[] the true count)."""
+    del n_live
+    E = flags.shape[0]
+    dev = flags.device
+    f = flags.to(torch.int32)
+    num = f.sum(dtype=torch.int32)
+    pos = torch.cumsum(f, 0, dtype=torch.int32) - 1
+    tgt = torch.where(flags & (pos < cap), pos, cap).long()
+    sel = torch.zeros(cap + 1, dtype=torch.int32, device=dev).scatter_(
+        0, tgt, torch.arange(E, dtype=torch.int32, device=dev))[:-1]
+    emask = torch.arange(cap, device=dev) < torch.clamp(num, max=cap)
+    return sel, emask, num
+
+
+def compact_perm(keys: torch.Tensor, valid: torch.Tensor, num_keys: int,
+                 n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stable permutation ordering entries by ascending key (keys in
+    [-1, num_keys); invalid entries last) -- ``SampledLayer.src_perm``."""
+    del n_live
+    return torch.argsort(torch.where(valid, keys, num_keys),
+                         stable=True).to(torch.int32)
