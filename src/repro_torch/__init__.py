@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of the LABOR serving path.
+"""PyTorch + CUDA port of LABOR: the GCN serving and training paths.
 
 The JAX package ``repro`` is the reference; this package mirrors its
 module paths (``repro_torch.core.labor`` is the twin of

@@ -1,6 +1,7 @@
 """Sampler registry (twin of ``repro.core.samplers``): one construction
-path from graph statistics to a configured sampler. Only ``labor-0``,
-the paper's default, is registered in this package so far.
+path from graph statistics to a configured sampler. ``labor-0`` (the
+paper's default) and ``ns`` (the baseline it is compared with) are
+registered in this package so far.
 
   from repro_torch.core import samplers
   sampler = samplers.from_dataset("labor-0", ds, batch_size=1024,
@@ -8,7 +9,7 @@ the paper's default, is registered in this package so far.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from repro_torch.core.interface import LayerCaps, Sampler, suggest_caps
 from repro_torch.core.labor import LaborConfig, LaborSampler
@@ -18,25 +19,39 @@ class UnknownSamplerError(ValueError):
     """Raised for a sampler name the registry cannot resolve."""
 
 
-def _labor0(budgets, caps) -> Sampler:
-    return LaborSampler.build(LaborConfig(fanouts=budgets), caps,
-                              name="labor-0")
+def _labor_builder(name: str, **kw) -> Callable:
+    def build(budgets, caps) -> Sampler:
+        return LaborSampler.build(LaborConfig(fanouts=budgets, **kw), caps,
+                                  name=name)
+    return build
 
 
-_REGISTRY: Dict[str, Callable] = {"labor-0": _labor0}
+#: name -> (builder(budgets, caps), one-line description)
+_REGISTRY: Dict[str, Tuple[Callable, str]] = {
+    "ns": (_labor_builder("ns", per_edge_rng=True, exact_k=True),
+           "vanilla Neighbor Sampling: per-edge randomness, exactly "
+           "min(k, d) neighbors (LABOR degenerate case, §3.2/§A.3)"),
+    "labor-0": (_labor_builder("labor-0"),
+                "LABOR with uniform pi — the paper's default (§3.2)"),
+}
 
 
 def list_samplers() -> tuple:
     return tuple(_REGISTRY)
 
 
+def describe() -> list:
+    """(name, doc) pairs for ``--list-samplers`` style output."""
+    return [(name, doc) for name, (_, doc) in _REGISTRY.items()]
+
+
 def resolve(name: str) -> Callable:
-    builder = _REGISTRY.get(name)
-    if builder is None:
+    entry = _REGISTRY.get(name)
+    if entry is None:
         raise UnknownSamplerError(
             f"sampler {name!r} is not ported to repro_torch yet; "
             f"registered: {', '.join(list_samplers())}")
-    return builder
+    return entry[0]
 
 
 def sampler_arg_type(name: str) -> str:

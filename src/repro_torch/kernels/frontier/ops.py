@@ -1,11 +1,13 @@
-"""Wrappers of the Hopper frontier kernels (``csrc/frontier.cu``).
+"""Wrappers of the Hopper frontier kernels (``csrc/frontier.cu``,
+``csrc/select.cu``).
 
 They replace the TPU kernels of ``repro/kernels/frontier``: the serial
-``compact_kernel``/``dedup_kernel``/``lookup_kernel``/``perm_kernel``
-(``frontier.py``) and the grid-parallel ``compact_tiles_kernel``/
-``dedup_tiles_kernel``/``dedup_merge_kernel``/``lookup_batched_kernel``/
-``sort_packed_kernel``/``sort_pairs_kernel`` (``parallel.py``). One
-design per contract; both TPU variants are held to the same contract.
+``compact_kernel``/``dedup_kernel``/``lookup_kernel``/``perm_kernel``/
+``select_kernel`` (``frontier.py``) and the grid-parallel
+``compact_tiles_kernel``/``dedup_tiles_kernel``/``dedup_merge_kernel``/
+``lookup_batched_kernel``/``sort_packed_kernel``/``sort_pairs_kernel``/
+``select_sort_kernel`` (``parallel.py``). One design per contract; both
+TPU variants are held to the same contract.
 
 On a CPU tensor each wrapper runs the plain version in ``ref.py``; on a
 CUDA tensor it checks device, dtype, shape and contiguity, allocates
@@ -26,7 +28,8 @@ from repro_torch.kernels.frontier import ref
 from repro_torch.kernels.frontier.ref import DedupResult
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES = {"compact": 0, "hash_dedup": 0, "compact_perm": 0}
+LAUNCHES = {"compact": 0, "hash_dedup": 0, "compact_perm": 0,
+            "segment_select": 0}
 
 _COMPACT_TILE = 4096   # kThreads * kCompactItems in frontier.cu
 _RADIX_TILE = 2048     # kThreads * kRadixItems
@@ -161,3 +164,35 @@ def hash_dedup(values: torch.Tensor, mask: torch.Tensor,
     LAUNCHES["hash_dedup"] += 1
     return DedupResult(new=new, slots=slots, num_new=num_new,
                        overflow=overflow)
+
+
+def segment_select(keys: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
+                   seg_start: torch.Tensor, take: torch.Tensor,
+                   n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-segment smallest-``take`` keys, ties by arrival order
+    (contract: ``ref.segment_select``): one warp per segment with the
+    keys in registers, one block per segment longer than 256 edges.
+    The kernel reads the segments from ``seg_start``; ``slot`` must
+    agree with it, as in the ``expand_seed_edges`` layout."""
+    if keys.device.type == "cpu":
+        return ref.segment_select(keys, slot, mask, seg_start, take)
+    dev = keys.device
+    _check("keys", keys, torch.float32, dev)
+    _check("slot", slot, torch.int32, dev)
+    _check("mask", mask, torch.bool, dev)
+    _check("seg_start", seg_start, torch.int32, dev)
+    _check("take", take, torch.int32, dev)
+    _check_live(n_live, dev)
+    E, S = keys.shape[0], seg_start.shape[0]
+    if not (slot.shape[0] == mask.shape[0] == E and take.shape[0] == S):
+        raise ValueError("segment_select: edge or segment arrays differ "
+                         "in length")
+    include = torch.empty(E, dtype=torch.bool, device=dev)
+    long_list, long_count = _i32(S, dev), _i32(1, dev)
+    status = _build.function("frontier_segment_select")(
+        _build.ptr(keys), _build.ptr(mask), E, _build.ptr(n_live),
+        _build.ptr(seg_start), _build.ptr(take), S, _build.ptr(include),
+        _build.ptr(long_list), _build.ptr(long_count), _stream(dev))
+    _build.check(status, "frontier_segment_select")
+    LAUNCHES["segment_select"] += 1
+    return include

@@ -12,7 +12,9 @@ Bit-compatibility contracts (relied on by the sampler parity tests):
     stays exact and a dropped value's slot is -1;
   * ``compact`` preserves arrival order (``jnp.nonzero(size=cap,
     fill_value=0)``);
-  * ``compact_perm`` is a STABLE by-key ordering, invalid entries last.
+  * ``compact_perm`` is a STABLE by-key ordering, invalid entries last;
+  * ``segment_select`` takes, per segment, the ``take`` smallest keys,
+    ties in arrival order -- the set a stable per-segment sort takes.
 
 The ``n_live`` argument of each primitive is a hint for the kernels
 (entries at index >= n_live are masked); these versions do not need it.
@@ -104,3 +106,55 @@ def compact_perm(keys: torch.Tensor, valid: torch.Tensor, num_keys: int,
     del n_live
     return torch.argsort(torch.where(valid, keys, num_keys),
                          stable=True).to(torch.int32)
+
+
+def segment_select(keys: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
+                   seg_start: torch.Tensor, take: torch.Tensor,
+                   n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-segment smallest-``take`` selection over segment-contiguous
+    edges (sequential Poisson, paper §A.3): include[e] iff (keys[e], e)
+    ranks below take[slot[e]] within its segment.
+
+    keys float32[E] >= 0; ``slot`` int32[E] is the segment of each
+    masked-in edge, and segment s occupies ``[seg_start[s],
+    seg_start[s + 1])`` (the last one ends at E): the
+    ``expand_seed_edges`` layout, masked entries only on the tail;
+    ``take`` int32[S]. A segment whose buffer holds fewer than ``take``
+    edges includes all it holds; a ``take`` of 0 selects nothing.
+
+    The threshold T_s, the take-th smallest key, is built bit by bit
+    over the keys' monotone int32 view: 31 masked segment counts (a
+    prefix sum and two boundary gathers each), then the keys below T_s
+    and the earliest ties at T_s up to the budget are included.
+    """
+    del n_live
+    E = keys.shape[0]
+    S = seg_start.shape[0]
+    dev = keys.device
+    u = keys.to(torch.float32).contiguous().view(torch.int32)
+    cslot = torch.clamp(slot, 0, S - 1).long()
+    starts = torch.clamp(seg_start, 0, E).long()
+    ends = torch.cat([starts[1:], torch.full((1,), E, dtype=torch.int64,
+                                             device=dev)])
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def seg_count(pred):
+        ex = torch.cat([zero, torch.cumsum(pred.to(torch.int32), 0,
+                                           dtype=torch.int32)])
+        return ex[ends] - ex[starts]
+
+    T = torch.zeros(S, dtype=torch.int32, device=dev)
+    for b in range(30, -1, -1):
+        cand = T + ((1 << b) - 1)
+        T = torch.where(seg_count(mask & (u <= cand[cslot])) >= take,
+                        T, T + (1 << b))
+    Te = T[cslot]
+    lt = mask & (u < Te)
+    cnt_lt = seg_count(lt)
+    eq = mask & (u == Te)
+    excl = torch.cumsum(eq.to(torch.int32), 0, dtype=torch.int32) - eq.to(
+        torch.int32)
+    base = excl[torch.clamp(seg_start, 0, max(E - 1, 0)).long()]
+    eq_rank = excl - base[cslot]
+    budget = (take - cnt_lt)[cslot]
+    return lt | (eq & (eq_rank < budget))

@@ -10,10 +10,10 @@ the overflow-retry contract and the same JSON report as the reference's
 
 ``--device cuda`` (the default) runs the CUDA kernels and fails if there
 is no card; ``--device cpu`` runs the plain versions on the CPU. The
-model's weights are random, from ``torch.Generator(seed)``, so the
-accuracy differs from the reference launcher's; the sampled sets for a
-given ``--seed`` are the same. ``--driver async`` and ``--workload lm``
-are not ported yet.
+model's weights come from ``gcn_init(key(seed))``, the reference's
+initialisation bit for bit, and the sampled sets for a given ``--seed``
+are the same. ``--driver async`` and ``--workload lm`` are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -42,8 +42,9 @@ def build_gnn_serving(args):
     sampler = samplers.from_dataset(args.sampler, ds, batch_size=args.batch,
                                     fanouts=fanouts, safety=2.0)
     engine = TrainEngine(sampler, device=args.device)
-    model = gnn_models.gcn_init(args.seed, ds.features.shape[1], args.hidden,
-                                n_cls, len(fanouts), device=engine.device)
+    model = gnn_models.gcn_init(rng_lib.key(args.seed), ds.features.shape[1],
+                                args.hidden, n_cls, len(fanouts),
+                                device=engine.device)
     data = engine.make_data_from_dataset(ds)
     return ds, engine, data, model, np.asarray(ds.labels)
 

@@ -17,24 +17,20 @@ import torch
 from torch import nn
 
 from repro_torch import ops as O
+from repro_torch.core import rng as rng_lib
 
 
 class GCNLayer(nn.Module):
-    def __init__(self, d_in: int, d_out: int, *,
-                 generator: Optional[torch.Generator] = None, device=None):
+    """``w``, ``b``, ``wr`` in the reference's layout, zero until
+    :func:`gcn_init` or :func:`params_from_jax` fills them. The residual
+    projection ``wr`` is on every layer: the paper's dims change at the
+    first and last layer."""
+
+    def __init__(self, d_in: int, d_out: int, *, device=None):
         super().__init__()
-        lim = math.sqrt(6.0 / (d_in + d_out))
-
-        def dense():
-            t = torch.empty(d_in, d_out, device="cpu")
-            t.uniform_(-lim, lim, generator=generator)
-            return nn.Parameter(t.to(device))
-
-        self.w = dense()
+        self.w = nn.Parameter(torch.zeros(d_in, d_out, device=device))
         self.b = nn.Parameter(torch.zeros(d_out, device=device))
-        # residual projection: the paper's dims change at the first and
-        # last layer, so every layer projects
-        self.wr = dense()
+        self.wr = nn.Parameter(torch.zeros(d_in, d_out, device=device))
 
     def forward(self, blk, h: torch.Tensor, *, is_last: bool,
                 backend: Optional[str] = None) -> torch.Tensor:
@@ -45,15 +41,15 @@ class GCNLayer(nn.Module):
 
 
 class GCN(nn.Module):
-    """``gcn_init`` + ``gcn_apply``: dims in -> hidden ... -> out."""
+    """``gcn_apply`` over ``num_layers`` layers: dims in -> hidden ...
+    -> out."""
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
-                 num_layers: int = 3, *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 num_layers: int = 3, *, device=None):
         super().__init__()
         dims = [in_dim] + [hidden] * (num_layers - 1) + [out_dim]
         self.layers = nn.ModuleList(
-            GCNLayer(dims[i], dims[i + 1], generator=generator, device=device)
+            GCNLayer(dims[i], dims[i + 1], device=device)
             for i in range(num_layers))
 
     def forward(self, blocks: Sequence, feats: torch.Tensor, *,
@@ -70,12 +66,21 @@ class GCN(nn.Module):
         return h
 
 
-def gcn_init(seed: int, in_dim: int, hidden: int, out_dim: int,
+def gcn_init(key: rng_lib.Key, in_dim: int, hidden: int, out_dim: int,
              num_layers: int = 3, device="cuda") -> GCN:
-    """A GCN initialised from ``torch.Generator().manual_seed(seed)``."""
-    gen = torch.Generator().manual_seed(seed)
-    return GCN(in_dim, hidden, out_dim, num_layers, generator=gen,
-               device=device).eval()
+    """The reference's ``gcn_init`` from the same threefry key: the same
+    Glorot-uniform weights bit for bit, zero biases."""
+    model = GCN(in_dim, hidden, out_dim, num_layers, device=device)
+    keys = rng_lib.split(key, num_layers * 2)
+    with torch.no_grad():
+        for i, layer in enumerate(model.layers):
+            d_in, d_out = layer.w.shape
+            lim = math.sqrt(6.0 / (d_in + d_out))
+            layer.w.copy_(rng_lib.uniform(keys[2 * i], (d_in, d_out), -lim,
+                                          lim))
+            layer.wr.copy_(rng_lib.uniform(keys[2 * i + 1], (d_in, d_out),
+                                           -lim, lim))
+    return model
 
 
 def params_from_jax(tree, device="cuda") -> GCN:

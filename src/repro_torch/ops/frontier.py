@@ -37,3 +37,13 @@ def compact_perm(keys: torch.Tensor, valid: torch.Tensor, num_keys: int, *,
     [-1, num_keys); invalid last) -- ``SampledLayer.src_perm``."""
     return get_backend(backend, keys.device).compact_perm(
         keys, valid, num_keys, n_live)
+
+
+def segment_select(keys: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
+                   seg_start: torch.Tensor, take: torch.Tensor, *,
+                   backend: Optional[str] = None,
+                   n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-segment smallest-``take`` selection over segment-contiguous
+    edges, ties by arrival order (sequential Poisson): bool[E]."""
+    return get_backend(backend, keys.device).segment_select(
+        keys, slot, mask, seg_start, take, n_live)

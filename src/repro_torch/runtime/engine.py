@@ -1,24 +1,34 @@
-"""The inference engine of the serving path (twin of the single-device
+"""The single-device train and infer engine (twin of the single-device
 half of ``repro.runtime.engine.TrainEngine``).
 
-One request runs what the reference's ``_build_single_infer`` program
-runs, eagerly: sample the blocks, gather the deepest layer's features,
-apply the model, return the logits and the per-layer overflow flags.
-:meth:`TrainEngine.infer_with_retry` doubles every cap and re-runs the
-same key when a flag is set. Training (the fused step, the overflow
-ledger, replay) and the multi-device engine are not ported yet.
+A train :meth:`TrainEngine.step` runs, eagerly, what the reference's
+fused one-program step runs: sample the blocks (no gradient), gather
+the deepest layer's features, the GCN forward, the masked mean NLL and
+accuracy, the backward, global-norm clipping and Adam. The update of
+the parameters and the optimizer state is gated on the device by the
+batch's overflow flags (``torch.where``, no host read); the flags are
+read one step late by the :class:`~repro_torch.data.gnn_loader.
+OverflowLedger`, and an overflowed batch is replayed with doubled caps.
+An infer request (:meth:`TrainEngine.infer`) samples, gathers and runs
+the forward; :meth:`TrainEngine.infer_with_retry` doubles every cap and
+re-runs the same key when a flag is set. The guardrail, gradient
+compression and the multi-device engine are not ported: asking for
+them raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.interface import Sampler, overflow_flags
-from repro_torch.data.gnn_loader import SamplingOverflowError
+from repro_torch.core.interface import (Sampler, overflow_flags,
+                                        sampled_counts)
+from repro_torch.data.gnn_loader import (LoaderStats, OverflowLedger,
+                                         SamplingOverflowError)
 from repro_torch.graph.csr import Graph
 from repro_torch.ops.backend import resolve_backend
+from repro_torch.optim import adam
 from repro_torch.runtime.guard import RetryPolicy
 
 
@@ -32,6 +42,27 @@ def gather_feats(features: torch.Tensor, block) -> torch.Tensor:
     return torch.where(valid[:, None], rows, 0.0)
 
 
+def seed_labels(labels: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """The labels of a padded seed batch (label 0 at padding slots)."""
+    return labels[torch.where(seeds >= 0, seeds, 0).long()]
+
+
+def gnn_loss_fn(model, blocks, feats: torch.Tensor, labels: torch.Tensor,
+                backend: Optional[str] = None):
+    """Masked mean NLL and accuracy over the batch's real seeds;
+    ``labels`` are the seeds' labels (any value at padding)."""
+    logits = model(blocks, feats, backend=backend)
+    valid = blocks[0].seeds >= 0
+    safe = torch.where(valid, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, safe[:, None])[:, 0]
+    nll = torch.where(valid, lse - gold, 0.0)
+    n = torch.clamp(valid.sum(), min=1)
+    loss = nll.sum() / n
+    acc = ((torch.argmax(logits, -1) == safe) & valid).sum() / n
+    return loss, acc
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineData:
     """Request-invariant inputs, on the engine's device."""
@@ -40,23 +71,58 @@ class EngineData:
     labels: torch.Tensor
 
 
-class TrainEngine:
-    """``TrainEngine(sampler, device=..., backend=...)``; ``infer`` and
-    ``infer_with_retry`` take the model (a ``repro_torch.models.gnn.GCN``)
-    where the reference takes its params pytree."""
+@dataclasses.dataclass(frozen=True)
+class EngineState:
+    """The optimizer state (``adam.init_state``: moments and step)."""
+    opt: Any
 
-    def __init__(self, sampler: Sampler, *, device="cuda",
-                 backend: Optional[str] = None):
+
+class TrainEngine:
+    """``TrainEngine(sampler, opt_cfg, device=..., backend=...)``.
+
+    ``step``/``flush``/``infer`` take the model (a
+    ``repro_torch.models.gnn.GCN``) where the reference takes its params
+    pytree; ``step`` updates the model's parameters in place and returns
+    it::
+
+        eng = TrainEngine(sampler, adam.AdamConfig(lr=1e-3))
+        data = eng.make_data_from_dataset(ds)
+        state = eng.init_state(model)
+        for seeds, key in batches:
+            model, state, m = eng.step(model, state, data, seeds, key)
+        model, state, _ = eng.flush(model, state, data)  # drain the ledger
+    """
+
+    def __init__(self, sampler: Sampler, opt_cfg: Optional[adam.AdamConfig]
+                 = None, mesh=None, *, device="cuda",
+                 backend: Optional[str] = None,
+                 stats: Optional[LoaderStats] = None, guard=None,
+                 grad_compression: str = "none"):
+        if mesh is not None or guard is not None or grad_compression != "none":
+            raise NotImplementedError(
+                "the mesh engine, the guardrail and gradient compression "
+                "are not ported to repro_torch yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for but CUDA is not "
                                "available (pass device='cpu' to run the "
                                "plain versions on the CPU)")
         self.sampler = sampler
+        self.opt_cfg = opt_cfg or adam.AdamConfig()
         self.backend = resolve_backend(backend, self.device)
+        self.stats = stats or LoaderStats()
+        #: (tag, metrics) of every replay attempt, for step-indexed
+        #: histories
+        self.replayed: List[Tuple[Any, Dict[str, Any]]] = []
+        self._ledger = OverflowLedger(self.stats)
         # bumped by grow(): the first request at new caps is tagged as a
         # set-up event by the serving metrics
         self.generation = 0
+
+    def init_state(self, model) -> EngineState:
+        return EngineState(opt=adam.init_state(
+            {k: p.detach() for k, p in model.named_parameters()},
+            self.opt_cfg))
 
     def make_data(self, graph: Graph, features, labels) -> EngineData:
         return EngineData(
@@ -73,15 +139,102 @@ class TrainEngine:
         self.sampler = self.sampler.doubled()
         self.generation += 1
 
+    # ------------------------------------------------------------------
+    # the train step, in the pieces it runs
+    # ------------------------------------------------------------------
+
+    def sample_batch(self, data: EngineData, seeds: torch.Tensor, key):
+        """Sample the blocks and gather the deepest layer's features (no
+        gradient): (blocks, feats)."""
+        with torch.no_grad():
+            blocks = self.sampler.sample(data.graph, seeds,
+                                         self.sampler.spec.salts(key),
+                                         backend=self.backend)
+            return blocks, gather_feats(data.features, blocks[-1])
+
+    @torch.no_grad()
+    def apply_update(self, model, state: EngineState, grads, blocks):
+        """Clip + Adam, written into ``model`` and the new state unless
+        the batch overflowed (gated on the device). Returns (state,
+        metrics)."""
+        params = dict(model.named_parameters())
+        new_p, new_opt, m = adam.apply_updates(
+            {k: p.detach() for k, p in params.items()},
+            dict(zip(params, grads)), state.opt, self.opt_cfg)
+        ovf = overflow_flags(blocks)
+        bad = ovf.any()
+        for k, p in params.items():
+            p.copy_(torch.where(bad, p, new_p[k]))
+
+        def gate(new, old):
+            if isinstance(new, dict):
+                return {k: gate(new[k], old[k]) for k in new}
+            return torch.where(bad, old, new)
+
+        m.update(overflow=ovf, **sampled_counts(blocks))
+        return EngineState(opt=gate(new_opt, state.opt)), m
+
+    def _dispatch(self, model, state: EngineState, data: EngineData, seeds,
+                  key):
+        blocks, feats = self.sample_batch(data, seeds, key)
+        loss, acc = gnn_loss_fn(model, blocks, feats,
+                                seed_labels(data.labels, seeds), self.backend)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        state, m = self.apply_update(model, state, grads, blocks)
+        m.update(loss=loss.detach(), acc=acc)
+        return model, state, m
+
+    def step(self, model, state: EngineState, data: EngineData, seeds, key,
+             tag: Any = None):
+        """One train step under the async overflow protocol: the update
+        is gated on the device; the PREVIOUS batch's flags are read (it
+        has finished) and an overflowed batch is replayed with doubled
+        caps. Returns (model, state, metrics) of THIS batch; replay
+        metrics land in :attr:`replayed`."""
+        model, state, m = self._dispatch(model, state, data, seeds, key)
+        due = self._ledger.record((seeds, key, tag, self.sampler),
+                                  m["overflow"])
+        if due is not None:
+            model, state, _ = self._replay(model, state, data, *due)
+        return model, state, m
+
+    def flush(self, model, state: EngineState, data: EngineData):
+        """Resolve the last batch (end of training). Returns (model,
+        state, metrics of the replayed batch or None)."""
+        due = self._ledger.flush()
+        if due is None:
+            return model, state, None
+        return self._replay(model, state, data, *due)
+
+    def _replay(self, model, state, data, seeds, key, tag, sampler_then):
+        box = {"state": state, "then": sampler_then}
+
+        def attempt(_i):
+            if self.sampler is box["then"]:
+                self.stats.overflow_retries += 1
+                self.grow()
+            _, s, m = self._dispatch(model, box["state"], data, seeds, key)
+            box["state"] = s
+            self.replayed.append((tag, m))
+            if bool(m["overflow"].any()):
+                box["then"] = self.sampler
+                return None
+            return model, s, m
+
+        return RetryPolicy().run(
+            attempt, error=SamplingOverflowError,
+            describe="sampling overflow persisted after cap doubling")
+
+    # ------------------------------------------------------------------
+    # inference
+    # ------------------------------------------------------------------
+
     @torch.no_grad()
     def infer_blocks(self, params, data: EngineData, seeds: torch.Tensor,
                      key):
         """Sample + gather + forward for one padded seed batch; returns
         (logits, overflow flags bool[num_layers], blocks)."""
-        salts = self.sampler.spec.salts(key)
-        blocks = self.sampler.sample(data.graph, seeds, salts,
-                                     backend=self.backend)
-        feats = gather_feats(data.features, blocks[-1])
+        blocks, feats = self.sample_batch(data, seeds, key)
         logits = params(blocks, feats, backend=self.backend)
         return logits, overflow_flags(blocks), blocks
 
@@ -108,6 +261,7 @@ class TrainEngine:
 
         def escalate(_i):
             self.grow()
+            self.stats.overflow_retries += 1
             grows["n"] += 1
 
         out = RetryPolicy(max_retries).run(

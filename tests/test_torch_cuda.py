@@ -15,7 +15,10 @@ from repro_torch.core.interface import INT_FIELDS, pad_seeds  # noqa: E402
 from repro_torch.graph.generators import paper_dataset  # noqa: E402
 from repro_torch.kernels.frontier import ops as fk  # noqa: E402
 from repro_torch.kernels.frontier import ref as fr  # noqa: E402
+from repro_torch.kernels.spmm import ops as sk  # noqa: E402
+from repro_torch.kernels.spmm import ref as sr  # noqa: E402
 from repro_torch.models.gnn import gcn_init  # noqa: E402
+from repro_torch.optim import adam  # noqa: E402
 from repro_torch.runtime.engine import TrainEngine  # noqa: E402
 
 
@@ -64,7 +67,7 @@ def served():
     for backend in ("cuda", "eager"):
         eng = TrainEngine(sampler, device="cuda", backend=backend)
         data = eng.make_data_from_dataset(ds)
-        model = gcn_init(0, 100, 32, 47, 3, device="cuda")
+        model = gcn_init(TR.key(0), 100, 32, 47, 3, device="cuda")
         out[backend] = eng.infer_blocks(model, data,
                                         pad_seeds(ds.val_idx[:60], 64,
                                                   device="cuda"),
@@ -93,3 +96,112 @@ def test_serving_path_kernels_match_plain(served):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
         torch.testing.assert_close(a.weight, b.weight, rtol=1e-6, atol=1e-7)
     torch.testing.assert_close(lk, le, rtol=1e-4, atol=1e-4)
+
+
+def _segments(g, deg, cap, dev, tie_every=0):
+    """An expand_seed_edges-style layout over ``cap`` slots (truncated
+    when the degrees sum past it), keys with ties, take = min(k, d)
+    with some takes of 0."""
+    deg = torch.as_tensor(deg, dtype=torch.int32, device=dev)
+    seg_start = (torch.cumsum(deg, 0, dtype=torch.int32) - deg)
+    total = int(deg.sum())
+    live = min(total, cap)
+    pos = torch.arange(cap, device=dev)
+    slot = (torch.searchsorted(torch.cumsum(deg, 0), pos, right=True)
+            .to(torch.int32))
+    mask = pos < live
+    slot = torch.where(mask, slot, -1)
+    keys = torch.rand(cap, generator=g, device=dev) * 4
+    if tie_every:
+        keys = torch.where(pos % tie_every == 0, torch.full_like(keys, 0.5),
+                           keys)
+    keys = torch.where(mask, keys, 3.4e38)
+    take = torch.clamp(deg, max=10)
+    take = torch.where(torch.arange(len(deg), device=dev) % 11 == 3, 0, take)
+    return keys, slot, mask, seg_start, take.to(torch.int32), torch.tensor(
+        live, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seg,max_deg,trunc", [(1, 1, 1.0), (7, 40, 1.0),
+                                                 (300, 300, 1.0),
+                                                 (2000, 1500, 0.6)])
+def test_segment_select_kernel_matches_plain(cuda_device, n_seg, max_deg,
+                                             trunc):
+    """B6 bit for bit: warp-sized and block-sized (> 256) segments, ties,
+    takes of 0, an expansion truncated at the cap."""
+    g = torch.Generator(device=cuda_device).manual_seed(n_seg)
+    deg = torch.randint(0, max_deg + 1, (n_seg,), generator=g,
+                        device=cuda_device)
+    deg[0] = max_deg
+    cap = max(1, int(int(deg.sum()) * trunc))
+    for tie in (0, 3):
+        keys, slot, mask, seg_start, take, live = _segments(
+            g, deg, cap, cuda_device, tie)
+        want = fr.segment_select(keys, slot, mask, seg_start, take)
+        for n in (None, live):
+            got = fk.segment_select(keys, slot, mask, seg_start, take, n)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 255, 4097])
+@pytest.mark.parametrize("F", [1, 100, 128, 129, 256])
+def test_gather_dst_kernel_matches_plain(cuda_device, E, F):
+    """B5 bit for bit, with masked edges past the live count and -1 and
+    out-of-range row indices reading nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(E * F)
+    S = 37
+    dst = torch.randint(-1, S + 2, (E,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    live = torch.tensor(E - E // 4, dtype=torch.int32, device=cuda_device)
+    mask = torch.arange(E, device=cuda_device) < live
+    rows = torch.randn(S, F, generator=g, device=cuda_device)
+    want = sr.gather_dst_ref(dst, mask, rows)
+    for n in (None, live):
+        assert torch.equal(sk.gather_dst_rows(dst, mask, rows, n), want)
+
+
+@pytest.mark.cuda
+def test_transposed_spmm_on_a_sampled_block(served):
+    """The SpMM kernel with roles swapped, fed a sampled block's
+    src_perm, against the plain transposed version."""
+    for blk in served["cuda"][2]:
+        live = torch.clamp(blk.num_edges, max=blk.edge_cap)
+        for F in (100, 256):
+            gr = torch.randn(blk.seed_cap, F, device="cuda")
+            args = (blk.src_slot, blk.dst_slot, blk.weight, blk.edge_mask,
+                    blk.src_perm, gr, blk.next_cap)
+            torch.testing.assert_close(sk.spmm_transposed(*args, n_live=live),
+                                       sr.spmm_transposed_ref(*args),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["labor-0", "ns"])
+def test_train_step_cuda_matches_eager(cuda_device, sampler):
+    """One train step with the kernels against the plain versions on the
+    card: the same sampled counts, loss and parameters to 1e-4."""
+    ds = paper_dataset("products", 0.004, seed=2)
+    smp = TS.from_dataset(sampler, ds, batch_size=64, fanouts=(5, 5, 5))
+    seeds = pad_seeds(ds.train_idx[:64], 64, device="cuda")
+    out = {}
+    fk.reset_launches()
+    sk.reset_launches()
+    for backend in ("cuda", "eager"):
+        eng = TrainEngine(smp, adam.AdamConfig(), device="cuda",
+                          backend=backend)
+        data = eng.make_data_from_dataset(ds)
+        model = gcn_init(TR.key(0), 100, 32, 47, 3, device="cuda")
+        model, _, m = eng.step(model, eng.init_state(model), data, seeds,
+                               TR.key(4))
+        out[backend] = (model, m)
+    assert sk.LAUNCHES["spmm_t"] == 2      # not for the first GCN layer
+    assert (fk.LAUNCHES["segment_select"] > 0) == (sampler == "ns")
+    (mk, m_k), (me, m_e) = out["cuda"], out["eager"]
+    for f in ("sampled_v", "sampled_e", "overflow"):
+        assert torch.equal(m_k[f], m_e[f]), f
+    torch.testing.assert_close(m_k["loss"], m_e["loss"], rtol=1e-4,
+                               atol=1e-5)
+    for (n, a), (_, b) in zip(mk.named_parameters(), me.named_parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=n)

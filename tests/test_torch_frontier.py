@@ -160,4 +160,5 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
                       torch.as_tensor(seeds), new_cap, backend="eager")
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert fk.LAUNCHES == {"compact": 0, "hash_dedup": 0, "compact_perm": 0}
+    assert fk.LAUNCHES == {"compact": 0, "hash_dedup": 0, "compact_perm": 0,
+                           "segment_select": 0}

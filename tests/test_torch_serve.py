@@ -209,7 +209,7 @@ def test_unported_paths_say_so():
     with pytest.raises(NotImplementedError):
         LaborConfig(fanouts=(5,), importance_iters=1)
     with pytest.raises(TS.UnknownSamplerError):
-        TS.resolve("ns")
+        TS.resolve("labor-1")
     for extra in (["--driver", "async"], ["--workload", "lm"]):
         with pytest.raises(SystemExit, match="not ported"):
             tserve.main(SERVE_ARGS + ["--device", "cpu"] + extra)
