@@ -13,10 +13,11 @@ error exits non-zero:
      The serving kernels (compact, hash_dedup, compact_perm, SpMM) get
      the real inputs of every layer of the first served request; the
      training kernels the real inputs of every layer of the first
-     training batch: segment_select on NS's, the transposed SpMM and
-     the row gather (``gather_dst``) on LABOR-0's, the gather driven
-     through an ``aggregate`` backward with the edge weights requiring
-     a gradient (its own path: counts zeroed before, read after).
+     training batch: segment_select on NS's, masked_cdf_draw's search
+     on LADIES's CDFs, the transposed SpMM and the row gather
+     (``gather_dst``) on LABOR-0's, the gather driven through an
+     ``aggregate`` backward with the edge weights requiring a gradient
+     (its own path: counts zeroed before, read after).
      Integers must match bit for bit, floats to rtol = atol = 1e-5
      (summation order). Times with CUDA events, beside the bound (bytes
      over 3.35 TB/s or flops over 67 TFLOP/s fp32, whichever is larger,
@@ -29,12 +30,19 @@ error exits non-zero:
      counters are zeroed just before and read just after; every serving
      kernel must have run. The first request is then recomputed with the
      plain versions on the card: integer block fields bit for bit,
-     logits to rtol = atol = 1e-4;
-  4. train: ``--steps`` steps each of LABOR-0 and NS through
-     ``repro_torch.launch.train``'s path at the same widths (Adam, lr
-     1e-3, clip 1.0), counts zeroed before and read after each: every
-     kernel of the path must have run (segment_select for NS, the
-     transposed SpMM for both), every loss must be finite. Step 0 is
+     logits to rtol = atol = 1e-4. Then 2 exact requests with the
+     ``full`` sampler at ``FULL_DEPTH`` layers (every in-edge; the
+     caps grow on overflow), counted as their own path and recomputed
+     the same way;
+  4. train: ``--steps`` steps each of LABOR-0, NS, LABOR-1, LABOR-*,
+     labor-d, LADIES and PLADIES through ``repro_torch.launch.train``'s
+     path at the same widths (Adam, lr 1e-3, clip 1.0; LADIES/PLADIES
+     draw 10,240 vertices per layer), counts zeroed before and read
+     after each: every kernel of the path must have run (segment_select
+     for NS, masked_cdf_draw for LADIES, the transposed SpMM for all),
+     every loss must be finite; the final caps (after any overflow
+     replay), the host reads of loop conditions in one warm step and
+     LABOR-i/*'s iteration counts per layer are printed. Step 0 is
      recomputed with the plain versions on the card from the same
      initial parameters, and with the plain versions in fp64: blocks bit
      for bit; the loss of both fp32 paths within 1e-5 (relative) of
@@ -55,8 +63,9 @@ error exits non-zero:
      window of warm requests, as for training.
 
 The line before the last is the ``kernels`` JSON object: per kernel,
-``launches_by_path`` holds its count on each counted path (serve, train
-labor-0, train ns, the weight-gradient path) and ``launches`` their sum.
+``launches_by_path`` holds its count on each counted path (serve, serve
+full, train <sampler> for each sampler, the weight-gradient path) and
+``launches`` their sum.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits 1 and prints no result.
 """
@@ -78,6 +87,11 @@ FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 INT_MAX = 2**31 - 1
 DEV = "cuda"
 WGRAD_PATH = "aggregate backward, weights requiring a gradient"
+# Layers of the exact ``full`` serving requests: the model's 3. At products
+# scale 0.25 three hops already reach all but one of the 612,257 vertices
+# over 13.8 M edges, and take ~21 ms per request, so the paper's depth fits
+# the time limit with room to spare.
+FULL_DEPTH = 3
 
 
 def emit(obj):
@@ -329,6 +343,30 @@ def adversarial(fk, fr, sk, sr):
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
             fail(f"spmm adversarial E={E} F={F} live={live_n}")
         cases += 1
+    # masked_cdf_draw: the reference suite's adversarial weights, u = 0
+    # over an invalid entry 0, zero-mass plateaus, an all-invalid p, no
+    # draws, one entry
+    ones = torch.ones
+    draw_cases = [
+        ("adversarial weights",
+         torch.cat([torch.full((4096,), 1e-7), torch.full((8,), 3e8),
+                    torch.full((4096,), 1e-7)]), ones(8200, dtype=torch.bool),
+         torch.tensor([0.0, 0.5, 1.0 - 1e-7, 1.0 - 6e-8])),
+        ("u = 0 and plateaus",
+         torch.tensor([5.0, 1.0, 0.0, 0.0, 2.0, 0.0, 2.0]),
+         torch.tensor([False, True, True, True, True, False, True]),
+         torch.tensor([0.0, 0.2, 0.6, 0.6000001, 0.99])),
+        ("all invalid", ones(9), torch.zeros(9, dtype=torch.bool),
+         torch.tensor([0.0, 0.3, 0.999])),
+        ("no draws", ones(5), ones(5, dtype=torch.bool), torch.zeros(0)),
+        ("one entry", torch.tensor([0.5]), ones(1, dtype=torch.bool),
+         torch.tensor([0.0, 0.7])),
+    ]
+    for name, p, valid, u in draw_cases:
+        p, valid, u = p.to(dev), valid.to(dev), u.to(dev)
+        same(f"masked_cdf_draw adversarial {name}",
+             fk.masked_cdf_draw(p, valid, u), fr.masked_cdf_draw(p, valid, u))
+        cases += 1
     torch.cuda.synchronize()
     emit({"phase": "kernels", "adversarial_cases": cases, "ok": True})
 
@@ -376,8 +414,9 @@ def library_select(keys, slot, mask, seg_start, take):
 
 def phase_train_kernels(samplers_, data, seeds, key, reps, records):
     """Phase 2, training half: segment_select on the NS batch's real
-    inputs, the transposed SpMM and the row gather on the LABOR-0 batch's
-    blocks, then the weight-gradient path."""
+    inputs, masked_cdf_draw's search on the LADIES batch's CDFs, the
+    transposed SpMM and the row gather on the LABOR-0 batch's blocks,
+    then the weight-gradient path."""
     from repro_torch import ops as TO
     from repro_torch.kernels.frontier import ops as fk
     from repro_torch.kernels.frontier import ref as fr
@@ -412,6 +451,38 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records):
             nbytes=n * 5 + S * 8 + E)
         emit({"phase": "kernels", "kernel": "segment_select", "layer": layer,
               "E": E, "S": S, "live": n, "selected": int(want.sum()), **t})
+
+    ladies = samplers_["ladies"]
+    calls = capture(frontier_ops, "masked_cdf_draw", lambda: ladies.sample(
+        data.graph, seeds, ladies.spec.salts(key), backend="eager"))
+    if len(calls) != ladies.num_layers:
+        fail(f"LADIES drew {len(calls)} times for {ladies.num_layers} "
+             "layers")
+    for layer, (a, _) in enumerate(calls):
+        p, valid, u = a
+        cdf = fr.normalized_cdf(p, valid)
+        got = fk.cdf_search(cdf, u)
+        want = fr.cdf_search(cdf, u)
+        torch.cuda.synchronize()
+        same(f"masked_cdf_draw layer {layer}", got, want)
+        C, n = cdf.shape[0], u.shape[0]
+
+        def library(cdf=cdf, u=u, C=C):
+            return torch.clamp(torch.searchsorted(cdf, u), 0, C - 1)
+
+        same(f"masked_cdf_draw library layer {layer}",
+             library().to(torch.int32), want)
+        # u and the draws once each, and one dependent 4-byte CDF read per
+        # level of the binary search (ceil(log2(C + 1)) levels), at most
+        # the whole CDF
+        probes = min(C, n * C.bit_length())
+        t = records["masked_cdf_draw"].add(
+            cuda_ms(lambda: fk.cdf_search(cdf, u), reps),
+            cuda_ms(lambda: fr.cdf_search(cdf, u), reps),
+            cuda_ms(library, reps), nbytes=8 * n + 4 * probes)
+        emit({"phase": "kernels", "kernel": "masked_cdf_draw",
+              "layer": layer, "C": C, "n": n,
+              "valid": int(valid.sum()), **t})
 
     engine = samplers_["engine"]
     blocks, feats = engine.sample_batch(data, seeds, key)
@@ -695,8 +766,38 @@ def recompute_step0(ds, cfg):
             "num_edges": [int(b.num_edges) for b in bk]}
 
 
+#: every sampler trained in phase 4, and the kernels only its path runs
+#: (every path runs compact, hash_dedup, compact_perm and both SpMMs)
+TRAIN_SAMPLERS = {"labor-0": (), "ns": ("segment_select",), "labor-1": (),
+                  "labor-*": (), "labor-d": (),
+                  "ladies": ("masked_cdf_draw",), "pladies": ()}
+
+
+def importance_iterations(engine, data, seeds, key):
+    """LABOR-i's solve counts and LABOR-*'s outer count per layer, from
+    one more sampling of the batch with run_importance_iterations'
+    log."""
+    from repro_torch.core import labor
+    logs = []
+    orig = labor.run_importance_iterations
+
+    def logged(*a, **kw):
+        logs.append({})
+        kw["log"] = logs[-1]
+        return orig(*a, **kw)
+
+    labor.run_importance_iterations = logged
+    try:
+        engine.sample_batch(data, seeds, key)
+    finally:
+        labor.run_importance_iterations = orig
+    return [{"outer": int(lg["outer"]) if "outer" in lg else None,
+             "solves": [int(n) for n in lg["solves"]]} for lg in logs]
+
+
 def phase_train(ds, opts, fk, sk):
     """Phase 4: train each sampler through the launcher's path."""
+    from repro_torch.core import cs_solve
     from repro_torch.core import rng as rng_lib
     from repro_torch.data.gnn_loader import SeedBatches
     from repro_torch.launch import train
@@ -704,7 +805,7 @@ def phase_train(ds, opts, fk, sk):
     from repro_torch.runtime.engine import TrainEngine
 
     paths = {}
-    for name in ("labor-0", "ns"):
+    for name, own in TRAIN_SAMPLERS.items():
         args = train.parser().parse_args([
             "--device", DEV, "--dataset", "products",
             "--scale", str(opts.scale), "--sampler", name,
@@ -722,10 +823,8 @@ def phase_train(ds, opts, fk, sk):
         torch.cuda.synchronize()
         launches = dict(fk.LAUNCHES, **sk.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        need = ["compact", "hash_dedup", "compact_perm", "spmm", "spmm_t"]
-        if name == "ns":
-            need.append("segment_select")
-        for k in need:
+        for k in ("compact", "hash_dedup", "compact_perm", "spmm",
+                  "spmm_t") + own:
             if launches[k] <= 0:
                 fail(f"kernel {k} was not launched on the {name} training "
                      "path")
@@ -736,7 +835,9 @@ def phase_train(ds, opts, fk, sk):
               "losses": losses, "launches": launches,
               "steps_per_s": opts.steps / out["wall_time"],
               "sampled_v_per_step": [h["sampled_v"] for h in out["history"]],
+              "sampled_e_per_step": [h["sampled_e"] for h in out["history"]],
               "avg_sampled_vertices": report["avg_sampled_vertices"],
+              "final_caps": [c.__dict__ for c in out["sampler"].caps],
               "peak_memory_gib": peak})
         check = recompute_step0(ds, cfg)
         emit({"phase": "train", "sampler": name,
@@ -755,7 +856,14 @@ def phase_train(ds, opts, fk, sk):
 
         seeds, key = batches.at(opts.steps), step_key(opts.steps)
         train_step_split(eng, model, state, data, seeds, key)   # warm-up
+        cs_solve.reset_host_reads()
         split = train_step_split(eng, model, state, data, seeds, key)
+        # loop conditions read on the host in that step's sampling (the
+        # engine's one-step-late overflow read is one more per step)
+        split["loop_host_reads"] = dict(cs_solve.HOST_READS)
+        if name.startswith("labor-") and name not in ("labor-0", "labor-d"):
+            split["importance_iterations"] = importance_iterations(
+                eng, data, seeds, key)
         emit({"phase": "train", "sampler": name, "warm_step": split})
         # a window of warm steps through TrainEngine.step (the ledger's
         # one-step-late flag read included) under the profiler
@@ -775,6 +883,58 @@ def phase_train(ds, opts, fk, sk):
         paths[name] = launches
         del data, eng
     return paths
+
+
+def phase_serve_full(ds, opts, fk, sk):
+    """Phase 3, exact inference: 2 requests with the ``full`` sampler
+    (every in-edge, caps grown on overflow) through the launcher's
+    synchronous path, counts zeroed before and read after; request 0
+    again with the plain versions on the card."""
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.core.interface import pad_seeds
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import TrainEngine
+
+    args = serve.parser().parse_args([
+        "--device", DEV, "--dataset", "products",
+        "--scale", str(opts.scale), "--sampler", "full",
+        "--fanouts", ",".join(["10"] * FULL_DEPTH), "--hidden", "256",
+        "--batch", "1024", "--requests", "2", "--seed", str(opts.seed)])
+    built = serve.build_gnn_serving(args, ds)
+    _, engine, data, model, _ = built
+    fk.reset_launches()
+    sk.reset_launches()
+    torch.cuda.synchronize()
+    report = serve.serve_gnn_sync(args, built)
+    torch.cuda.synchronize()
+    launches = dict(fk.LAUNCHES, **sk.LAUNCHES)
+    for name in ("compact", "hash_dedup", "compact_perm", "spmm"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the full serving path")
+    if report["requests_served"] != 2 or not report["exact"]:
+        fail(f"full serving: {report}")
+    seeds = pad_seeds(serve.gnn_trace(args, ds)[0], args.batch, device=DEV)
+    key = rng_lib.split(rng_lib.key(args.seed + 1))[1]
+    out = [TrainEngine(engine.sampler, device=DEV, backend=b).infer_blocks(
+        model, data, seeds, key) for b in ("cuda", "eager")]
+    torch.cuda.synchronize()
+    (logits_k, flags_k, blocks_k), (logits_e, flags_e, blocks_e) = out
+    compare_blocks(blocks_k, blocks_e, "full request 0")
+    same("full request 0 overflow flags", flags_k, flags_e)
+    if bool(flags_k.any()) or not bool(torch.isfinite(logits_k).all()):
+        fail("full request 0: overflow at the grown caps or non-finite "
+             "logits")
+    err = (logits_k - logits_e).abs().max().item()
+    if not torch.allclose(logits_k, logits_e, rtol=1e-4, atol=1e-4):
+        fail(f"full request 0 logits differ from the plain versions by {err}")
+    emit({"phase": "serve full", "depth": FULL_DEPTH,
+          "report": report, "launches": launches,
+          "caps": [c.__dict__ for c in engine.sampler.caps],
+          "logits_max_abs_err": err,
+          "num_next": [int(b.num_next) for b in blocks_k],
+          "num_edges": [int(b.num_edges) for b in blocks_k],
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return launches
 
 
 def compare_blocks(blocks_k, blocks_e, what="request 0"):
@@ -938,17 +1098,23 @@ def main():
         "spmm_t": Record("spmm_t", "cuda", "src/repro_torch/csrc/spmm.cu",
                          "src/repro/kernels/spmm/spmm.py:31 (transposed, "
                          "in the aggregate backward)"),
+        "masked_cdf_draw": Record(
+            "masked_cdf_draw", "cuda", "src/repro_torch/csrc/search.cu",
+            "src/repro/kernels/frontier/frontier.py:303, "
+            "src/repro/kernels/frontier/parallel.py:503"),
     }
     phase_kernels(engine, data, seeds0, key0, opts.reps, records)
 
-    # the first training batch of the launcher's run, for both samplers
+    # the first training batch of the launcher's run, for NS, LADIES and
+    # LABOR-0 (the engine)
     train_args = train.parser().parse_args([
         "--device", DEV, "--batch-size", "1024", "--fanouts", "10,10,10",
         "--seed", str(opts.seed)])
     cfg = train.config(train_args)
     samplers_ = {
-        "ns": build_sampler(ds, dataclasses.replace(cfg, sampler="ns")),
-        "engine": TrainEngine(build_sampler(ds, cfg), device=DEV)}
+        name: build_sampler(ds, dataclasses.replace(cfg, sampler=name))
+        for name in ("ns", "ladies")}
+    samplers_["engine"] = TrainEngine(build_sampler(ds, cfg), device=DEV)
     seeds_t = SeedBatches(ds.train_idx, 1024, seed=opts.seed,
                           device=DEV).at(0)
     key_t = rng_lib.fold_in(rng_lib.key(opts.seed + 1), 0)
@@ -994,8 +1160,11 @@ def main():
           "num_next": [int(b.num_next) for b in blocks_k],
           "num_edges": [int(b.num_edges) for b in blocks_k]})
 
-    # -- phase 4: train LABOR-0 and NS through the launcher's path --------
-    paths = {"serve": launches,
+    # exact inference: full neighbourhoods, at FULL_DEPTH layers
+    full_launches = phase_serve_full(ds, opts, fk, sk)
+
+    # -- phase 4: train every sampler through the launcher's path ---------
+    paths = {"serve": launches, "serve full": full_launches,
              **{f"train {k}": v for k, v in phase_train(ds, opts, fk,
                                                          sk).items()},
              WGRAD_PATH: wgrad_launches}

@@ -23,7 +23,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch.core import rng as rng_lib
-from repro_torch.core.cs_solve import _segment_sum
+from repro_torch.core.cs_solve import _segment_sum_sorted, segment_offsets
 from repro_torch.ops import frontier as frontier_ops
 
 
@@ -223,9 +223,12 @@ def build_block(seeds: torch.Tensor, exp: dict, include: torch.Tensor,
     src, slot = exp["src"], exp["seed_slot"]
     safe_slot = torch.clamp(slot, 0, S - 1).long()
 
-    # Hajek weights (Algorithm 1): A'_ts = (1/p_ts) / sum_t' 1/p_t's
+    # Hajek weights (Algorithm 1): A'_ts = (1/p_ts) / sum_t' 1/p_t's, the
+    # sums in a fixed order over each seed's contiguous segment (adding
+    # the excluded edges' zeros changes no sum), so every run and both
+    # backends get the same weights
     inv_p = torch.where(include, inv_p, 0.0)
-    w = _segment_sum(inv_p, torch.where(include, slot, -1), S)
+    w = _segment_sum_sorted(inv_p, segment_offsets(slot, S))
     weight_full = torch.where(
         include, inv_p / torch.clamp(w[safe_slot], min=1e-20), 0.0)
 

@@ -1,61 +1,124 @@
-"""Sampler registry (twin of ``repro.core.samplers``): one construction
-path from graph statistics to a configured sampler. ``labor-0`` (the
-paper's default) and ``ns`` (the baseline it is compared with) are
-registered in this package so far.
+"""Sampler registry (twin of ``repro.core.samplers``): one namespace and
+one construction path from graph statistics to a configured sampler,
+with the reference's eight entries in its order (plus ``labor-<i>`` for
+any i >= 0):
+
+  ns        vanilla Neighbor Sampling (LABOR degenerate case, §3.2/§A.3)
+  labor-0   LABOR with uniform pi (the paper's default)
+  labor-1   one importance fixed-point iteration
+  labor-*   iterate importance sampling to convergence (§4.3)
+  labor-d   layer-dependent LABOR-0: r_t reused across layers (§A.8)
+  ladies    LADIES baseline (Zou et al. 2019)
+  pladies   Poisson LADIES (paper §3.1)
+  full      full neighbourhood, cap-bounded: exact inference and serving
 
   from repro_torch.core import samplers
   sampler = samplers.from_dataset("labor-0", ds, batch_size=1024,
                                   fanouts=(10, 10, 10))
+  blocks = sampler.sample_with_key(graph, seeds, key)
+
+Adding a sampler: subclass ``Sampler`` (a ``sample(graph, seeds,
+salts)`` built on ``build_block``) and ``register(name, builder,
+doc=...)`` with ``builder(budgets, caps) -> Sampler``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import dataclasses
+import re
+from typing import Callable, List, Optional, Sequence
 
-from repro_torch.core.interface import LayerCaps, Sampler, suggest_caps
-from repro_torch.core.labor import LaborConfig, LaborSampler
+import torch
+
+from repro_torch.core.interface import (LayerCaps, SampledLayer, Sampler,
+                                        SamplerSpec, build_block,
+                                        suggest_caps)
+from repro_torch.core.labor import CONVERGE, LaborConfig, LaborSampler
+from repro_torch.core.ladies import LadiesConfig, LadiesSampler
+from repro_torch.graph.csr import Graph, expand_seed_edges
+
+
+@dataclasses.dataclass(frozen=True)
+class FullSampler(Sampler):
+    """Full-neighbourhood "sampler": every in-edge of every seed, layer by
+    layer, cap-bounded. Deterministic (salts are ignored); the Hajek
+    weights reduce to 1/d_s, the exact row-normalised aggregation."""
+
+    def sample(self, graph: Graph, seeds: torch.Tensor, salts: Sequence[int],
+               *, backend: Optional[str] = None) -> List[SampledLayer]:
+        del salts  # deterministic: include everything
+        blocks = []
+        cur = seeds
+        for caps in self.spec.caps:
+            exp = expand_seed_edges(graph, cur, caps.expand_cap,
+                                    backend=backend)
+            inv_p = torch.ones(caps.expand_cap, dtype=torch.float32,
+                               device=cur.device)          # p_ts = 1
+            blk = build_block(cur, exp, exp["mask"], inv_p, caps,
+                              backend=backend)
+            blocks.append(blk)
+            cur = blk.next_seeds
+        return blocks
 
 
 class UnknownSamplerError(ValueError):
     """Raised for a sampler name the registry cannot resolve."""
 
 
-def _labor_builder(name: str, **kw) -> Callable:
-    def build(budgets, caps) -> Sampler:
-        return LaborSampler.build(LaborConfig(fanouts=budgets, **kw), caps,
-                                  name=name)
-    return build
+@dataclasses.dataclass(frozen=True)
+class RegistryEntry:
+    name: str
+    builder: Callable          # (budgets, caps) -> Sampler
+    doc: str = ""
+    budget_kind: str = "fanouts"   # "fanouts" | "layer_sizes"
+    dense: bool = False            # caps must hold full neighbourhoods
 
 
-#: name -> (builder(budgets, caps), one-line description)
-_REGISTRY: Dict[str, Tuple[Callable, str]] = {
-    "ns": (_labor_builder("ns", per_edge_rng=True, exact_k=True),
-           "vanilla Neighbor Sampling: per-edge randomness, exactly "
-           "min(k, d) neighbors (LABOR degenerate case, §3.2/§A.3)"),
-    "labor-0": (_labor_builder("labor-0"),
-                "LABOR with uniform pi — the paper's default (§3.2)"),
-}
+_REGISTRY: dict = {}
+
+
+def register(name: str, builder: Callable, *, doc: str = "",
+             budget_kind: str = "fanouts", dense: bool = False,
+             overwrite: bool = False) -> Callable:
+    """Register ``builder(budgets, caps) -> Sampler`` under ``name``."""
+    if budget_kind not in ("fanouts", "layer_sizes"):
+        raise ValueError(f"bad budget_kind {budget_kind!r}")
+    if name in _REGISTRY and not overwrite:
+        raise ValueError(f"sampler {name!r} already registered")
+    _REGISTRY[name] = RegistryEntry(name=name, builder=builder, doc=doc,
+                                    budget_kind=budget_kind, dense=dense)
+    return builder
 
 
 def list_samplers() -> tuple:
+    """Registered sampler names (``labor-<i>`` also resolves for any i)."""
     return tuple(_REGISTRY)
 
 
 def describe() -> list:
     """(name, doc) pairs for ``--list-samplers`` style output."""
-    return [(name, doc) for name, (_, doc) in _REGISTRY.items()]
+    return [(e.name, e.doc) for e in _REGISTRY.values()]
 
 
-def resolve(name: str) -> Callable:
+def resolve(name: str) -> RegistryEntry:
+    """Entry for ``name``; the ``labor-<i>`` family resolves for any i.
+    Raises :class:`UnknownSamplerError`, with the listing, otherwise."""
     entry = _REGISTRY.get(name)
-    if entry is None:
-        raise UnknownSamplerError(
-            f"sampler {name!r} is not ported to repro_torch yet; "
-            f"registered: {', '.join(list_samplers())}")
-    return entry[0]
+    if entry is not None:
+        return entry
+    m = re.fullmatch(r"labor-(\d+)", name)
+    if m:
+        iters = int(m.group(1))
+        return RegistryEntry(
+            name=name, builder=_labor_builder(name, iters),
+            doc=f"LABOR with {iters} importance fixed-point iteration(s)")
+    raise UnknownSamplerError(
+        f"unknown sampler {name!r}; registered: "
+        f"{', '.join(list_samplers())} (plus labor-<i> for any i >= 0)")
 
 
 def sampler_arg_type(name: str) -> str:
-    """``argparse`` ``type=`` hook: validate ``--sampler`` at parse time."""
+    """``argparse`` ``type=`` hook shared by the launchers: validate
+    ``--sampler`` at parse time."""
     import argparse
     try:
         resolve(name)
@@ -64,27 +127,67 @@ def sampler_arg_type(name: str) -> str:
     return name
 
 
+def make_list_samplers_action():
+    """An ``argparse`` action class for ``--list-samplers``: print the
+    registry (one line per entry, plus the ``labor-<i>`` family) and
+    exit. Shared by ``launch/train.py`` and ``launch/serve.py``."""
+    import argparse
+
+    class ListSamplers(argparse.Action):
+        def __init__(self, option_strings, dest, **kw):
+            super().__init__(option_strings, dest, nargs=0, **kw)
+
+        def __call__(self, parser, namespace, values, option_string=None):
+            for name, doc in describe():
+                print(f"{name:10s} {doc}")
+            print(f"{'labor-<i>':10s} LABOR with any number of importance "
+                  "fixed-point iterations")
+            parser.exit()
+
+    return ListSamplers
+
+
 def get(name: str, budgets: Sequence[int],
         caps: Sequence[LayerCaps]) -> Sampler:
-    """Build a registered sampler from explicit budgets + caps."""
-    return resolve(name)(tuple(int(b) for b in budgets), tuple(caps))
+    """Build a registered sampler from explicit budgets + caps: per-layer
+    fanouts, or per-layer sizes for the ladies family (each entry's
+    ``budget_kind``)."""
+    return resolve(name).builder(tuple(int(b) for b in budgets), tuple(caps))
 
 
 def from_graph_stats(name: str, *, batch_size: int, fanouts: Sequence[int],
                      avg_degree: float, max_degree: int,
                      num_vertices: Optional[int] = None,
                      num_edges: Optional[int] = None,
+                     layer_sizes: Optional[Sequence[int]] = None,
                      safety: float = 2.0) -> Sampler:
-    """A sampler with its cap schedule derived from graph statistics."""
-    builder = resolve(name)
+    """A sampler with its cap schedule derived from graph statistics:
+    ``suggest_caps`` sizes the buffers from the fanouts (from
+    ``max_degree`` per layer for ``dense`` entries such as ``full``), and
+    the ladies family takes ``layer_sizes`` as budgets (default
+    ``batch_size * k`` per layer)."""
+    entry = resolve(name)
     fanouts = tuple(int(k) for k in fanouts)
-    caps = suggest_caps(batch_size, fanouts, avg_degree, max_degree,
+    cap_fanouts = (tuple(int(max_degree) for _ in fanouts) if entry.dense
+                   else fanouts)
+    caps = suggest_caps(batch_size, cap_fanouts, avg_degree, max_degree,
                         safety=safety, num_vertices=num_vertices,
                         num_edges=num_edges)
-    return builder(fanouts, tuple(caps))
+    if entry.budget_kind == "layer_sizes":
+        budgets = (tuple(int(n) for n in layer_sizes)
+                   if layer_sizes is not None
+                   else tuple(batch_size * k for k in fanouts))
+        if len(budgets) != len(fanouts):
+            raise ValueError(
+                f"sampler {name!r}: {len(budgets)} layer_sizes for "
+                f"{len(fanouts)} layers")
+    else:
+        budgets = fanouts
+    return entry.builder(budgets, tuple(caps))
 
 
 def from_dataset(name: str, ds, *, batch_size: int, fanouts: Sequence[int],
+                 layer_sizes: Optional[Sequence[int]] = None,
                  safety: float = 2.0) -> Sampler:
     """:func:`from_graph_stats` with the statistics of a GraphDataset."""
     g = ds.graph
@@ -92,4 +195,47 @@ def from_dataset(name: str, ds, *, batch_size: int, fanouts: Sequence[int],
         name, batch_size=batch_size, fanouts=fanouts,
         avg_degree=g.num_edges / g.num_vertices,
         max_degree=ds.max_in_degree, num_vertices=g.num_vertices,
-        num_edges=g.num_edges, safety=safety)
+        num_edges=g.num_edges, layer_sizes=layer_sizes, safety=safety)
+
+
+def _labor_builder(name: str, iters: int, **kw) -> Callable:
+    def build(budgets, caps):
+        return LaborSampler.build(
+            LaborConfig(fanouts=budgets, importance_iters=iters, **kw),
+            caps, name=name)
+    return build
+
+
+def _ladies_builder(name: str, poisson: bool) -> Callable:
+    def build(budgets, caps):
+        return LadiesSampler.build(LadiesConfig(budgets, poisson=poisson),
+                                   caps, name=name)
+    return build
+
+
+register("ns", _labor_builder("ns", 0, per_edge_rng=True, exact_k=True),
+         doc="vanilla Neighbor Sampling: per-edge randomness, exactly "
+             "min(k, d) neighbors (LABOR degenerate case, §3.2/§A.3)")
+register("labor-0", _labor_builder("labor-0", 0),
+         doc="LABOR with uniform pi — the paper's default (§3.2)")
+register("labor-1", _labor_builder("labor-1", 1),
+         doc="LABOR with one importance fixed-point iteration (§4.3)")
+register("labor-*", _labor_builder("labor-*", CONVERGE),
+         doc="LABOR iterated to importance-sampling convergence (§4.3)")
+register("labor-d", _labor_builder("labor-d", 0, layer_dependency=True),
+         doc="layer-dependent LABOR-0: one salt shared across layers so "
+             "r_t is reused and |V^3| shrinks further (§A.8)")
+register("ladies", _ladies_builder("ladies", False),
+         budget_kind="layer_sizes",
+         doc="LADIES baseline (Zou et al. 2019): n vertices per layer, "
+             "with-replacement inverse-CDF draws")
+register("pladies", _ladies_builder("pladies", True),
+         budget_kind="layer_sizes",
+         doc="Poisson LADIES (§3.1): water-filled inclusion probs, "
+             "E[|layer|] = n, unbiased by construction")
+register("full",
+         lambda budgets, caps: FullSampler(
+             SamplerSpec(name="full", budgets=budgets, caps=caps)),
+         dense=True,
+         doc="full neighborhood, cap-bounded — exact (zero-variance) "
+             "aggregation for inference/serving")

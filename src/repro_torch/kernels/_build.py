@@ -27,7 +27,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-SOURCES = ("frontier", "select", "spmm")
+SOURCES = ("frontier", "search", "select", "spmm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +39,7 @@ SIGNATURES = {
     "frontier_hash_dedup": ("frontier", [_P, _P, _I, _P, _P, _I, _I, _I,
                                          _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P, _P, _P, _P]),
+    "frontier_cdf_search": ("search", [_P, _I, _P, _I, _P, _P]),
     "frontier_segment_select": ("select", [_P, _P, _I, _P, _P, _P, _I, _P,
                                            _P, _P, _P]),
     "spmm_rows": ("spmm", [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P,

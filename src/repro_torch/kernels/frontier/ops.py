@@ -1,12 +1,13 @@
 """Wrappers of the Hopper frontier kernels (``csrc/frontier.cu``,
-``csrc/select.cu``).
+``csrc/select.cu``, ``csrc/search.cu``).
 
 They replace the TPU kernels of ``repro/kernels/frontier``: the serial
 ``compact_kernel``/``dedup_kernel``/``lookup_kernel``/``perm_kernel``/
-``select_kernel`` (``frontier.py``) and the grid-parallel
-``compact_tiles_kernel``/``dedup_tiles_kernel``/``dedup_merge_kernel``/
-``lookup_batched_kernel``/``sort_packed_kernel``/``sort_pairs_kernel``/
-``select_sort_kernel`` (``parallel.py``). One design per contract; both
+``select_kernel``/``search_kernel`` (``frontier.py``) and the
+grid-parallel ``compact_tiles_kernel``/``dedup_tiles_kernel``/
+``dedup_merge_kernel``/``lookup_batched_kernel``/``sort_packed_kernel``/
+``sort_pairs_kernel``/``select_sort_kernel``/``batched_search_kernel``
+(``parallel.py``). One design per contract; both
 TPU variants are held to the same contract.
 
 On a CPU tensor each wrapper runs the plain version in ``ref.py``; on a
@@ -29,7 +30,7 @@ from repro_torch.kernels.frontier.ref import DedupResult
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES = {"compact": 0, "hash_dedup": 0, "compact_perm": 0,
-            "segment_select": 0}
+            "segment_select": 0, "masked_cdf_draw": 0}
 
 _COMPACT_TILE = 4096   # kThreads * kCompactItems in frontier.cu
 _RADIX_TILE = 2048     # kThreads * kRadixItems
@@ -196,3 +197,37 @@ def segment_select(keys: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
     _build.check(status, "frontier_segment_select")
     LAUNCHES["segment_select"] += 1
     return include
+
+
+def cdf_search(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """First index with ``cdf >= u``, clipped into the buffer (contract:
+    ``ref.cdf_search``): one thread per draw, a binary search over the
+    CDF in device memory."""
+    if cdf.device.type == "cpu":
+        return ref.cdf_search(cdf, u)
+    dev = cdf.device
+    _check("cdf", cdf, torch.float32, dev)
+    _check("u", u, torch.float32, dev)
+    C, n = cdf.shape[0], u.shape[0]
+    if C < 1:
+        raise ValueError("cdf_search needs a CDF of at least one entry")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    status = _build.function("frontier_cdf_search")(
+        _build.ptr(cdf), C, _build.ptr(u), n, _build.ptr(out), _stream(dev))
+    _build.check(status, "frontier_cdf_search")
+    LAUNCHES["masked_cdf_draw"] += 1
+    return out
+
+
+def masked_cdf_draw(p: torch.Tensor, valid: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draws over the valid entries of ``p`` (contract:
+    ``ref.masked_cdf_draw``): the shared plain ``normalized_cdf``, then
+    the search kernel."""
+    if p.device.type == "cpu":
+        return ref.masked_cdf_draw(p, valid, u)
+    _check("p", p, torch.float32, p.device)
+    _check("valid", valid, torch.bool, p.device)
+    if valid.shape != p.shape:
+        raise ValueError("p and valid differ in length")
+    return cdf_search(ref.normalized_cdf(p, valid), u)

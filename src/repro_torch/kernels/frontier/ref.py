@@ -158,3 +158,63 @@ def segment_select(keys: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
     eq_rank = excl - base[cslot]
     budget = (take - cnt_lt)[cslot]
     return lt | (eq & (eq_rank < budget))
+
+
+#: row length of :func:`fixed_order_cumsum`
+SCAN_ROW = 1024
+
+
+def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float cumsum of a 1-D tensor in one fixed order: rows of
+    ``SCAN_ROW`` entries are scanned along dim 1, then the row totals by
+    the same function, and added. A multi-row scan is PyTorch's row-scan
+    kernel on the card, whose order is fixed; a 1-D ``torch.cumsum``
+    there is a single-pass scan whose float association depends on
+    timing, so two runs could differ in the last bits."""
+    C = x.shape[0]
+    R = -(-C // SCAN_ROW)
+    xp = torch.zeros(max(R, 2) * SCAN_ROW, dtype=x.dtype, device=x.device)
+    xp[:C] = x
+    rows = torch.cumsum(xp.view(-1, SCAN_ROW), dim=1)
+    if R <= 1:
+        return rows[0, :C]
+    rows = rows[:R]
+    carry = fixed_order_cumsum(rows[:, -1].contiguous())
+    rows[1:] += carry[:-1, None]
+    return rows.reshape(-1)[:C]
+
+
+def normalized_cdf(p: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Masked cumulative distribution normalised by its own final value,
+    so that the last entry is exactly 1.0 (or every entry 0 when nothing
+    is valid) and an inverse-CDF draw can never index past the buffer.
+    Shared by the kernel and the plain search, so both search the same
+    floats."""
+    pv = torch.where(valid, torch.clamp(p, min=0.0), 0.0)
+    cdf = fixed_order_cumsum(pv)
+    return cdf / torch.clamp(cdf[-1:], min=1e-30)
+
+
+def cdf_search(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """For each u, the first index i with ``cdf[i] >= u`` (searchsorted
+    'left' over a non-decreasing cdf), clipped into [0, C - 1]: int32[n].
+    A lockstep binary search, the arithmetic of the kernel."""
+    C, n = cdf.shape[0], u.shape[0]
+    lo = torch.zeros(n, dtype=torch.int64, device=u.device)
+    hi = torch.full((n,), C, dtype=torch.int64, device=u.device)
+    for _ in range(C.bit_length()):
+        mid = lo + (hi - lo) // 2
+        ge = cdf[torch.clamp(mid, max=C - 1)] >= u
+        go = lo < hi
+        lo = torch.where(go & ~ge, mid + 1, lo)
+        hi = torch.where(go & ge, mid, hi)
+    return torch.clamp(lo, 0, C - 1).to(torch.int32)
+
+
+def masked_cdf_draw(p: torch.Tensor, valid: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draws over the valid entries of ``p``: for each u in
+    [0, 1), the first index whose normalised CDF reaches u, clipped into
+    the buffer (int32[n]). u = 0 gives index 0 whether or not entry 0 is
+    valid, and a plateau of zero mass resolves to its first index."""
+    return cdf_search(normalized_cdf(p, valid), u)

@@ -8,12 +8,14 @@ the overflow-retry contract and the same JSON report as the reference's
       --dataset products --scale 0.25 --sampler labor-0 \\
       --fanouts 10,10,10 --hidden 256 --batch 1024 --requests 8
 
-``--device cuda`` (the default) runs the CUDA kernels and fails if there
-is no card; ``--device cpu`` runs the plain versions on the CPU. The
-model's weights come from ``gcn_init(key(seed))``, the reference's
-initialisation bit for bit, and the sampled sets for a given ``--seed``
-are the same. ``--driver async`` and ``--workload lm`` are not ported
-yet.
+``--sampler`` takes any registry entry (``--list-samplers``); the
+default is the reference's ``full``, the exact full-neighbourhood
+aggregation. ``--device cuda`` (the default) runs the CUDA kernels and
+fails if there is no card; ``--device cpu`` runs the plain versions on
+the CPU. The model's weights come from ``gcn_init(key(seed))``, the
+reference's initialisation bit for bit, and the sampled sets for a
+given ``--seed`` are the same. ``--driver async`` and ``--workload lm``
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,9 +36,11 @@ from repro_torch.runtime.engine import TrainEngine
 from repro_torch.serving.metrics import ServingStats
 
 
-def build_gnn_serving(args):
-    """Dataset, model, engine and device-resident data of one run."""
-    ds = paper_dataset(args.dataset, scale=args.scale, seed=args.seed)
+def build_gnn_serving(args, ds=None):
+    """Dataset (``ds``, or built from the flags), model, engine and
+    device-resident data of one run."""
+    if ds is None:
+        ds = paper_dataset(args.dataset, scale=args.scale, seed=args.seed)
     fanouts = tuple(int(x) for x in args.fanouts.split(","))
     n_cls = int(ds.labels.max()) + 1
     sampler = samplers.from_dataset(args.sampler, ds, batch_size=args.batch,
@@ -103,8 +107,9 @@ def serve_gnn_sync(args, built=None):
         answers.append(logits)
     report = stats.report()
     report.update(sampler=engine.sampler.name, backend=engine.backend,
-                  exact=False, driver="off", requests=args.requests,
-                  request_size=args.batch, batch=args.batch,
+                  exact=engine.sampler.name == "full", driver="off",
+                  requests=args.requests, request_size=args.batch,
+                  batch=args.batch,
                   accuracy=round(_accuracy(requests, answers, labels), 4))
     print(json.dumps(report, indent=1))
     return report
@@ -118,8 +123,13 @@ def parser() -> argparse.ArgumentParser:
                     help="the seed-buffer shape of one dispatch")
     ap.add_argument("--dataset", default="products")
     ap.add_argument("--scale", type=float, default=0.01)
-    ap.add_argument("--sampler", default="labor-0",
-                    type=samplers.sampler_arg_type)
+    ap.add_argument("--sampler", default="full",
+                    type=samplers.sampler_arg_type,
+                    help="any registered sampler; 'full' = exact "
+                         "inference (see --list-samplers)")
+    ap.add_argument("--list-samplers",
+                    action=samplers.make_list_samplers_action(),
+                    help="print the sampler registry and exit")
     ap.add_argument("--fanouts", default="10,10,10")
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--requests", type=int, default=8)

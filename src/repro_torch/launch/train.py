@@ -5,11 +5,16 @@ the reference launcher's JSON report.
   PYTHONPATH=src python -m repro_torch.launch.train --workload gnn \\
       --dataset products --scale 0.25 --sampler labor-0 \\
       --fanouts 10,10,10 --batch-size 1024 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --list-samplers
 
-``--device cuda`` (the default) runs the CUDA kernels and fails if there
-is no card; ``--device cpu`` runs the plain versions on the CPU. With
-the same ``--seed`` the run starts from the reference's parameters and
-draws the reference's batches and sampled sets. The hidden width is the
+``--sampler`` takes any registry entry (``ns``, ``labor-0``,
+``labor-1``, ``labor-<i>``, ``labor-*``, ``labor-d``, ``ladies``,
+``pladies``, ``full``); ``--layer-sizes`` sets the per-layer budgets of
+``ladies``/``pladies`` (default batch size x fanout). ``--device cuda``
+(the default) runs the CUDA kernels and fails if there is no card;
+``--device cpu`` runs the plain versions on the CPU. With the same
+``--seed`` the run starts from the reference's parameters and draws the
+reference's batches and sampled sets. The hidden width is the
 reference's 256. ``--workload lm`` is not ported yet.
 """
 from __future__ import annotations
@@ -31,10 +36,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--scale", type=float, default=0.01)
     ap.add_argument("--sampler", default="labor-0",
                     type=samplers.sampler_arg_type,
-                    help="; ".join(f"{n}: {d}" for n, d in
-                                   samplers.describe()))
+                    help="any registered sampler (see --list-samplers)")
+    ap.add_argument("--list-samplers",
+                    action=samplers.make_list_samplers_action(),
+                    help="print the sampler registry and exit")
     ap.add_argument("--model", default="gcn", choices=["gcn"])
     ap.add_argument("--fanouts", default="10,10,10")
+    ap.add_argument("--layer-sizes", default=None,
+                    help="comma-separated per-layer budgets for (p)ladies")
     ap.add_argument("--batch-size", type=int, default=1000)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -51,8 +60,10 @@ def config(args):
     """The ``GNNTrainConfig`` the flags ask for."""
     from repro_torch.runtime.trainer import GNNTrainConfig
     fanouts = tuple(int(x) for x in args.fanouts.split(","))
+    layer_sizes = (tuple(int(x) for x in args.layer_sizes.split(","))
+                   if args.layer_sizes else None)
     return GNNTrainConfig(model=args.model, fanouts=fanouts,
-                          sampler=args.sampler,
+                          sampler=args.sampler, layer_sizes=layer_sizes,
                           batch_size=args.batch_size, steps=args.steps,
                           lr=args.lr, seed=args.seed, device=args.device)
 

@@ -12,7 +12,7 @@ import torch
 from repro_torch.ops.backend import (BACKEND_CHOICES, get_backend,
                                      resolve_backend)
 from repro_torch.ops.frontier import (compact, compact_perm, hash_dedup,
-                                      segment_select)
+                                      masked_cdf_draw, segment_select)
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.interface import SampledLayer
@@ -57,4 +57,5 @@ def sddmm(blk: "SampledLayer", u: torch.Tensor, v: torch.Tensor, *,
 
 __all__ = ["BACKEND_CHOICES", "aggregate", "compact", "compact_perm",
            "gather_dst", "gather_src", "get_backend", "hash_dedup",
-           "resolve_backend", "sddmm", "segment_select"]
+           "masked_cdf_draw", "resolve_backend", "sddmm",
+           "segment_select"]

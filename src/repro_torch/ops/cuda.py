@@ -23,7 +23,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from repro_torch.kernels.frontier.ops import (  # noqa: F401
-    compact, compact_perm, hash_dedup, segment_select)
+    compact, compact_perm, hash_dedup, masked_cdf_draw, segment_select)
 from repro_torch.kernels.spmm.ops import (gather_dst_rows, spmm_block,
                                           spmm_transposed)
 from repro_torch.ops import gather_src

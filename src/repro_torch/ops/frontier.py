@@ -47,3 +47,12 @@ def segment_select(keys: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
     edges, ties by arrival order (sequential Poisson): bool[E]."""
     return get_backend(backend, keys.device).segment_select(
         keys, slot, mask, seg_start, take, n_live)
+
+
+def masked_cdf_draw(p: torch.Tensor, valid: torch.Tensor,
+                    u: torch.Tensor, *,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """Inverse-CDF draws over the valid entries of ``p`` (LADIES): for
+    each u in [0, 1) the first index whose normalised CDF reaches u,
+    clipped into the buffer: int32[n]."""
+    return get_backend(backend, p.device).masked_cdf_draw(p, valid, u)

@@ -10,7 +10,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from repro_torch.kernels.frontier.ref import (  # noqa: F401
-    compact, compact_perm, hash_dedup, segment_select)
+    compact, compact_perm, hash_dedup, masked_cdf_draw, segment_select)
 from repro_torch.kernels.spmm.ref import gather_dst_ref, spmm_block_ref
 
 if TYPE_CHECKING:  # pragma: no cover

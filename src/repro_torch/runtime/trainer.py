@@ -36,6 +36,7 @@ class GNNTrainConfig:
     hidden: int = 256
     fanouts: tuple = (10, 10, 10)
     sampler: str = "labor-0"            # a repro_torch.core.samplers entry
+    layer_sizes: Optional[tuple] = None  # (p)ladies budgets; None -> default
     batch_size: int = 1000
     lr: float = 1e-3
     steps: int = 200
@@ -64,7 +65,7 @@ def build_sampler(ds: GraphDataset, cfg: GNNTrainConfig) -> Sampler:
     (train and eval share it)."""
     return sampler_registry.from_dataset(
         cfg.sampler, ds, batch_size=cfg.batch_size, fanouts=cfg.fanouts,
-        safety=cfg.cap_safety)
+        layer_sizes=cfg.layer_sizes, safety=cfg.cap_safety)
 
 
 def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig) -> Dict[str, Any]:

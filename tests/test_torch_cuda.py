@@ -177,8 +177,91 @@ def test_transposed_spmm_on_a_sampled_block(served):
                                        rtol=1e-5, atol=1e-5)
 
 
+def _cdf_case(g, C, n, dev, plateaus=True):
+    """A normalised CDF with zero-mass plateaus and u that hit its
+    values exactly, 0 and values just below 1."""
+    p = torch.rand(C, generator=g, device=dev) ** 4
+    if plateaus:
+        p = torch.where(torch.rand(C, generator=g, device=dev) < 0.3, 0.0, p)
+    valid = torch.rand(C, generator=g, device=dev) < 0.9
+    cdf = fr.normalized_cdf(p, valid)
+    u = torch.rand(n, generator=g, device=dev)
+    hits = cdf[torch.randint(0, C, (n // 4,), generator=g, device=dev)]
+    u = torch.cat([u, hits, torch.tensor([0.0, 1.0 - 6e-8, 1.0 - 1e-7],
+                                         device=dev)])
+    return p, valid, cdf, u
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sampler", ["labor-0", "ns"])
+@pytest.mark.parametrize("C,n", [(1, 5), (2, 64), (1000, 10_240),
+                                 (1 << 20, 10_240), (9_426_304, 10_240)])
+def test_cdf_search_kernel_matches_plain(cuda_device, C, n):
+    """B7 bit for bit against the plain lockstep search and against
+    torch.searchsorted (clamped), at LADIES's layer-2 size too."""
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    p, valid, cdf, u = _cdf_case(g, C, n, cuda_device)
+    want = fr.cdf_search(cdf, u)
+    got = fk.cdf_search(cdf, u)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    lib = torch.clamp(torch.searchsorted(cdf, u), 0, C - 1).to(torch.int32)
+    assert torch.equal(lib, want)
+    assert torch.equal(fk.masked_cdf_draw(p, valid, u),
+                       fr.masked_cdf_draw(p, valid, u))
+
+
+@pytest.mark.cuda
+def test_cdf_search_kernel_adversarial(cuda_device):
+    """The regression weights of the reference's suite, an all-invalid
+    p, u = 0 over an invalid entry 0, no draws, one entry."""
+    dev = cuda_device
+    ones = torch.ones
+    cases = [
+        (torch.cat([torch.full((4096,), 1e-7), torch.full((8,), 3e8),
+                    torch.full((4096,), 1e-7)]), ones(8200, dtype=torch.bool),
+         torch.tensor([0.0, 0.5, 1.0 - 1e-7, 1.0 - 6e-8])),
+        (ones(9), torch.zeros(9, dtype=torch.bool),
+         torch.tensor([0.0, 0.3, 0.999])),
+        (torch.tensor([5.0, 1.0, 0.0, 2.0]),
+         torch.tensor([False, True, True, True]), torch.tensor([0.0, 0.4])),
+        (ones(5), ones(5, dtype=torch.bool), torch.zeros(0)),
+        (torch.tensor([0.5]), ones(1, dtype=torch.bool),
+         torch.tensor([0.0, 0.7])),
+    ]
+    for p, valid, u in cases:
+        p, valid, u = p.to(dev), valid.to(dev), u.to(dev)
+        got = fk.masked_cdf_draw(p, valid, u)
+        assert torch.equal(got, fr.masked_cdf_draw(p, valid, u))
+    assert got.tolist() == [0, 0]
+    with pytest.raises(ValueError):
+        fk.cdf_search(torch.zeros(0, device=dev), torch.zeros(3, device=dev))
+    with pytest.raises(TypeError):
+        fk.cdf_search(torch.zeros(4, device=dev, dtype=torch.float64),
+                      torch.zeros(3, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["labor-*", "ladies", "pladies"])
+def test_float_decisions_are_deterministic_on_the_card(cuda_device, sampler):
+    """The float sums that decide LABOR-*, LADIES and PLADIES (c_s,
+    E[|T|], column norms, the CDF, the water-fill) and the Hajek
+    denominators run in a fixed order: two runs of the plain versions
+    and one of the kernels sample the same blocks, weights bit for
+    bit."""
+    ds = paper_dataset("products", 0.004, seed=2)
+    smp = TS.from_dataset(sampler, ds, batch_size=64, fanouts=(5, 5, 5))
+    graph = ds.graph.to(cuda_device)
+    seeds = pad_seeds(ds.train_idx[:64], 64, device="cuda")
+    runs = [smp.sample_with_key(graph, seeds, TR.key(9), backend=b)
+            for b in ("eager", "eager", "cuda")]
+    for blocks in runs[1:]:
+        for a, b in zip(runs[0], blocks):
+            for f in INT_FIELDS + ("weight",):
+                assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["labor-0", "ns", "labor-1", "labor-*",
+                                     "labor-d", "ladies", "pladies"])
 def test_train_step_cuda_matches_eager(cuda_device, sampler):
     """One train step with the kernels against the plain versions on the
     card: the same sampled counts, loss and parameters to 1e-4."""
@@ -198,6 +281,7 @@ def test_train_step_cuda_matches_eager(cuda_device, sampler):
         out[backend] = (model, m)
     assert sk.LAUNCHES["spmm_t"] == 2      # not for the first GCN layer
     assert (fk.LAUNCHES["segment_select"] > 0) == (sampler == "ns")
+    assert (fk.LAUNCHES["masked_cdf_draw"] > 0) == (sampler == "ladies")
     (mk, m_k), (me, m_e) = out["cuda"], out["eager"]
     for f in ("sampled_v", "sampled_e", "overflow"):
         assert torch.equal(m_k[f], m_e[f]), f

@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and torch's
+# OpenMP threads spinning against them slow every worker several-fold
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -161,4 +164,4 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert fk.LAUNCHES == {"compact": 0, "hash_dedup": 0, "compact_perm": 0,
-                           "segment_select": 0}
+                           "segment_select": 0, "masked_cdf_draw": 0}

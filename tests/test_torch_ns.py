@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and torch's
+# OpenMP threads spinning against them slow every worker several-fold
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -188,6 +191,6 @@ def test_sampled_vertices_ns_vs_labor0_match_reference(dsets):
 
 
 def test_ns_is_registered_with_its_doc():
-    assert set(TS.list_samplers()) == {"ns", "labor-0"}
+    assert TS.list_samplers() == JS.list_samplers()
     assert dict(TS.describe())["ns"] == dict(JS.describe())["ns"]
     assert TS.sampler_arg_type("ns") == "ns"

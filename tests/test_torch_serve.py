@@ -10,7 +10,10 @@ a small graph (products at scale 0.004, batch 64, fanouts 5,5,5, hidden
     across, to rtol = atol = 1e-4 (three fp32 layers, other BLAS
     blocking);
   * the overflow-retry contract: the same number of cap doublings;
-  * the launcher prints the reference launcher's JSON keys;
+  * the launcher prints the reference launcher's JSON keys, sampler,
+    ``exact`` flag, served counts and accuracy, with LABOR-0 and with
+    the default sampler (``full``); every other registry entry serves
+    through the port's launcher;
   * the port imports neither jax nor repro, and asks for CUDA by default.
 """
 import json
@@ -22,6 +25,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and torch's
+# OpenMP threads spinning against them slow every worker several-fold
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -177,17 +183,47 @@ SERVE_ARGS = ["--workload", "gnn", "--driver", "off", "--dataset",
               "--requests", "2"]
 
 
-def test_launcher_prints_the_reference_keys(monkeypatch, capsys):
+@pytest.mark.parametrize("sampler", ["labor-0", None])
+def test_launcher_prints_the_reference_keys(sampler, monkeypatch, capsys):
+    """Both launchers on the same surface, with ``--sampler labor-0`` and
+    with no ``--sampler`` at all (the default, ``full``): the same keys,
+    sampler, ``exact`` flag, served counts and accuracy (same weights
+    from the same seed, the same blocks)."""
     from repro.launch import serve as jserve
     from repro_torch.launch import serve as tserve
-    monkeypatch.setattr(sys, "argv", ["serve"] + SERVE_ARGS)
+    args = SERVE_ARGS
+    if sampler is None:
+        i = SERVE_ARGS.index("--sampler")
+        args = SERVE_ARGS[:i] + SERVE_ARGS[i + 2:]
+    monkeypatch.setattr(sys, "argv", ["serve"] + args)
     jserve.main()
     ref = json.loads(capsys.readouterr().out)
-    report = tserve.main(SERVE_ARGS + ["--device", "cpu"])
+    report = tserve.main(args + ["--device", "cpu"])
     out = json.loads(capsys.readouterr().out)
     assert set(out) == set(ref) and out == report
     assert out["requests_served"] == ref["requests_served"] == 2
-    assert out["backend"] == "eager" and out["sampler"] == "labor-0"
+    for k in ("sampler", "exact", "accuracy", "batches",
+              "avg_batch_occupancy", "grow_events", "timeouts", "rejected"):
+        assert out[k] == ref[k], k
+    assert out["backend"] == "eager"
+    assert out["sampler"] == (sampler or "full")
+    assert out["exact"] is (sampler is None)
+
+
+@pytest.mark.parametrize("sampler", ["ns", "labor-1", "labor-*", "labor-d",
+                                     "ladies", "pladies"])
+def test_every_sampler_serves_through_the_launcher(sampler, capsys):
+    """The registry's other entries serve on the CPU through the port's
+    launcher; their blocks are held against repro's in the sampler
+    tests."""
+    from repro_torch.launch import serve as tserve
+    i = SERVE_ARGS.index("--sampler")
+    args = SERVE_ARGS[:i + 1] + [sampler] + SERVE_ARGS[i + 2:]
+    report = tserve.main(args + ["--device", "cpu"])
+    assert json.loads(capsys.readouterr().out) == report
+    assert report["sampler"] == sampler and report["exact"] is False
+    assert report["requests_served"] == report["batches"] == 2
+    assert 0.0 <= report["accuracy"] <= 1.0
 
 
 def test_cuda_is_the_default_device(samplers_):
@@ -204,12 +240,22 @@ def test_cuda_is_the_default_device(samplers_):
 
 
 def test_unported_paths_say_so():
-    from repro_torch.core.labor import LaborConfig
+    from repro_torch.core.labor import sample_layer
+    from repro_torch.core.ladies import sample_layer_ladies
+    from repro_torch.graph.csr import Graph
     from repro_torch.launch import serve as tserve
-    with pytest.raises(NotImplementedError):
-        LaborConfig(fanouts=(5,), importance_iters=1)
+    weighted = Graph(indptr=torch.tensor([0, 1, 2], dtype=torch.int32),
+                     indices=torch.tensor([1, 0], dtype=torch.int32),
+                     weights=torch.ones(2))
+    seeds = torch.tensor([0, 1], dtype=torch.int32)
+    caps = TS.suggest_caps(2, (1,), 1.0, 1)[0]
+    for sample in (lambda: sample_layer(weighted, seeds, 0, 1, caps,
+                                        importance_iters=1),
+                   lambda: sample_layer_ladies(weighted, seeds, 0, 1, caps)):
+        with pytest.raises(NotImplementedError):
+            sample()
     with pytest.raises(TS.UnknownSamplerError):
-        TS.resolve("labor-1")
+        TS.resolve("labor-one")
     for extra in (["--driver", "async"], ["--workload", "lm"]):
         with pytest.raises(SystemExit, match="not ported"):
             tserve.main(SERVE_ARGS + ["--device", "cpu"] + extra)

@@ -12,7 +12,9 @@
     1e-6 (three fp32 layers, sums in another order);
   * the verify-skill surface on both launchers with the same ``--seed``
     (``--dataset flickr --scale 0.02 --fanouts 5,5 --batch-size 128
-    --steps 8``) for ``labor-0`` and ``ns``: the same JSON keys, the
+    --steps 8``) for every registry entry (``labor-0``, ``ns``,
+    ``labor-1``, ``labor-*``, ``labor-d``, ``ladies``, ``pladies``,
+    ``full``): the same JSON keys, the
     same ``avg_sampled_vertices`` and overflow counts, ``final_loss``
     within atol 1e-5 + rtol 1e-3 (eight Adam steps in fp32, a loss that
     falls towards 1e-4 where the relative error grows);
@@ -30,6 +32,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and torch's
+# OpenMP threads spinning against them slow every worker several-fold
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -193,7 +198,8 @@ SURFACE = ["--dataset", "flickr", "--scale", "0.02", "--fanouts", "5,5",
            "--batch-size", "128", "--steps", "8", "--seed", "3"]
 
 
-@pytest.mark.parametrize("sampler", ["labor-0", "ns"])
+@pytest.mark.parametrize("sampler", ["labor-0", "ns", "labor-1", "labor-*",
+                                     "labor-d", "ladies", "pladies", "full"])
 def test_launchers_print_the_same_report(sampler, monkeypatch, capsys):
     from repro.launch import train as jlaunch
     from repro_torch.launch import train as tlaunch
@@ -248,6 +254,8 @@ def test_port_modules_load_neither_jax_nor_repro():
         "import repro_torch.launch.train, repro_torch.launch.serve\n"
         "import repro_torch.runtime.trainer, repro_torch.ops.cuda\n"
         "import repro_torch.kernels.frontier.ops, repro_torch.optim.adam\n"
+        "import repro_torch.core.ladies, repro_torch.core.variance\n"
+        "import repro_torch.core.samplers, repro_torch.core.cs_solve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
