@@ -17,12 +17,17 @@ error exits non-zero:
      on LADIES's CDFs, the transposed SpMM and the row gather
      (``gather_dst``) on LABOR-0's, the gather driven through an
      ``aggregate`` backward with the edge weights requiring a gradient
-     (its own path: counts zeroed before, read after).
+     (its own path: counts zeroed before, read after); the edge softmax
+     (B8) on the logits of each layer of the first LABOR-0 GATv2 batch
+     (8, 8 and 1 heads) and the per-edge scatter ``scatter_rows`` in
+     both forms (dst-sorted, and through ``src_perm``) at that batch's
+     widths.
      Integers must match bit for bit, floats to rtol = atol = 1e-5
      (summation order). Times with CUDA events, beside the bound (bytes
      over 3.35 TB/s or flops over 67 TFLOP/s fp32, whichever is larger,
      counting what these inputs need) and one PyTorch library call
-     computing the same function;
+     computing the same function, where there is one (none computes a
+     segment softmax);
   3. serve: ``--requests`` requests through ``repro_torch.launch.serve``'s
      synchronous path on products at ``--scale`` (0.25: 612,257
      vertices) with the paper's widths (100 features, hidden 256, 47
@@ -32,40 +37,47 @@ error exits non-zero:
      plain versions on the card: integer block fields bit for bit,
      logits to rtol = atol = 1e-4. Then 2 exact requests with the
      ``full`` sampler at ``FULL_DEPTH`` layers (every in-edge; the
-     caps grow on overflow), counted as their own path and recomputed
-     the same way;
+     caps grow on overflow), and ``--requests`` LABOR-0 requests of
+     ``--model gatv2`` (8 heads of 32), each counted as its own path and
+     recomputed the same way;
   4. train: ``--steps`` steps each of LABOR-0, NS, LABOR-1, LABOR-*,
-     labor-d, LADIES and PLADIES through ``repro_torch.launch.train``'s
+     labor-d, LADIES and PLADIES with the GCN, and of LABOR-0 with
+     GraphSAGE and with GATv2, through ``repro_torch.launch.train``'s
      path at the same widths (Adam, lr 1e-3, clip 1.0; LADIES/PLADIES
      draw 10,240 vertices per layer), counts zeroed before and read
      after each: every kernel of the path must have run (segment_select
-     for NS, masked_cdf_draw for LADIES, the transposed SpMM for all),
-     every loss must be finite; the final caps (after any overflow
-     replay), the host reads of loop conditions in one warm step and
-     LABOR-i/*'s iteration counts per layer are printed. Step 0 is
-     recomputed with the plain versions on the card from the same
+     for NS, masked_cdf_draw for LADIES, the transposed SpMM for the GCN
+     and SAGE, the gather, the per-edge scatter and the edge softmax for
+     GATv2), every loss must be finite; the final caps (after any
+     overflow replay), the host reads of loop conditions in one warm
+     step and LABOR-i/*'s iteration counts per layer are printed. Step 0
+     is recomputed with the plain versions on the card from the same
      initial parameters, and with the plain versions in fp64: blocks bit
      for bit; the loss of both fp32 paths within 1e-5 (relative) of
      fp64; per tensor, the gradients and the updated parameters of both
-     fp32 paths within 1e-3 relative L2 of fp64. The bound is per tensor
+     fp32 paths within 1e-3 relative L2 of fp64. GATv2's fp64 pass does
+     not fit the card at batch 1024, so there its two fp32 paths are
+     held to each other (the same bounds) and the fp64 yardstick runs at
+     batch ``GATV2_FP64_BATCH``. The bound is per tensor
      and in L2 because fp32 sums in another order move a pre-activation
      near 0 across the ReLU in one path and not the other (the number of
-     such flips is printed), which changes whole gradient rows, and
+     such sign flips, at each ReLU, ELU and GATv2 LeakyReLU, is
+     printed), which changes whole gradient rows, and
      Adam's first step moves each entry by about lr along its gradient's
      sign, which float noise decides for a gradient near 0. One warm step
      is split by CUDA events into sample / gather / forward / backward /
      Adam; then torch.profiler over a window of warm steps through
      ``TrainEngine.step`` gives the device's busy time per step, its
      idle share in that same window and the top device kernels; steps/s,
-     sampled vertices per step and peak memory are printed per sampler;
+     sampled vertices per step and peak memory are printed per path;
   5. where the serving time goes: one warm request split into sample /
      gather / forward with CUDA events; then torch.profiler over a
      window of warm requests, as for training.
 
 The line before the last is the ``kernels`` JSON object: per kernel,
 ``launches_by_path`` holds its count on each counted path (serve, serve
-full, train <sampler> for each sampler, the weight-gradient path) and
-``launches`` their sum.
+full, serve gatv2, train <sampler> for each sampler, train sage, train
+gatv2, the weight-gradient path) and ``launches`` their sum.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits 1 and prints no result.
 """
@@ -75,12 +87,16 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# GATv2's first layer allocates and frees (9.4 M, 256) tensors of 9.65 GB
+# in turn; growable segments keep the cached blocks from fragmenting
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
@@ -143,11 +159,15 @@ class Record:
 
     def add(self, ms, plain_ms, library_ms, nbytes, flops=0.0, err=0.0):
         """Adds one call's times; returns them with its bound, for the
-        per-call line."""
+        per-call line. ``library_ms`` None: no one PyTorch call computes
+        the same function."""
         r = self.row
         r["ms"] += ms
         r["plain_ms"] += plain_ms
-        r["library_ms"] += library_ms
+        if library_ms is None:
+            r["library_ms"] = None
+        elif r["library_ms"] is not None:
+            r["library_ms"] += library_ms
         r["max_abs_err"] = max(r["max_abs_err"], float(err))
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         flop_ms = flops / FP32_FLOP_PER_S * 1e3
@@ -371,6 +391,27 @@ def adversarial(fk, fr, sk, sr):
     emit({"phase": "kernels", "adversarial_cases": cases, "ok": True})
 
 
+def counters():
+    """The kernel wrappers' modules, each with its LAUNCHES counts."""
+    from repro_torch.kernels.edge_softmax import ops as ek
+    from repro_torch.kernels.frontier import ops as fk
+    from repro_torch.kernels.spmm import ops as sk
+    return fk, sk, ek
+
+
+def reset_launches():
+    for m in counters():
+        m.reset_launches()
+
+
+def launch_counts():
+    """Launches per kernel wrapper since the last reset_launches()."""
+    out = {}
+    for m in counters():
+        out.update(m.LAUNCHES)
+    return out
+
+
 def capture(module, name, run):
     """Run ``run()`` with ``module.<name>`` wrapped; returns the
     (args, kwargs) of each call it made."""
@@ -542,8 +583,7 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records):
 
     # the weight-gradient path: aggregate backward with the edge weights
     # requiring a gradient, against plain autograd on the card
-    fk.reset_launches()
-    sk.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     grads = []
     for layer, (blk, (h, g)) in enumerate(zip(blocks, inputs)):
@@ -557,7 +597,7 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records):
             got.append((w.grad, x.grad))
         grads.append(got)
     torch.cuda.synchronize()
-    wgrad_launches = dict(fk.LAUNCHES, **sk.LAUNCHES)
+    wgrad_launches = launch_counts()
     errs = []
     for layer, ((wk, hk), (we, he)) in enumerate(grads):
         errs.append(allclose_or_fail(f"weight gradient layer {layer}", wk, we))
@@ -640,6 +680,222 @@ def adversarial_train(fk, fr, sk, sr):
     emit({"phase": "kernels", "adversarial_train_cases": cases, "ok": True})
 
 
+def sorted_edges(g, E, S, live_n, masked_in_prefix=0.0):
+    """A block-like edge layout: a dst-sorted prefix of ``live_n`` edges
+    over ``S`` rows (some rows empty, some with one edge), -1 and masked
+    past it, optionally with masked edges inside the prefix."""
+    dst = torch.sort(torch.randint(0, S, (E,), generator=g, device=DEV,
+                                   dtype=torch.int32)).values
+    live = torch.arange(E, device=DEV) < live_n
+    dst = torch.where(live, dst, -1)
+    mask = live & (torch.rand(E, generator=g, device=DEV) >= masked_in_prefix)
+    return dst, mask, torch.tensor(live_n, dtype=torch.int32, device=DEV)
+
+
+def check_softmax_rows(name, alpha, dst, mask, S):
+    """Masked edges 0, every row with a masked-in edge sums to 1."""
+    if bool((alpha[~mask] != 0).any()):
+        fail(f"{name}: a masked edge has a non-zero coefficient")
+    H = alpha.shape[1]
+    sums = torch.zeros(S, H, device=DEV).index_add_(0, dst[mask].long(),
+                                                    alpha[mask])
+    rows = torch.unique(dst[mask].long())
+    err = (sums[rows] - 1).abs().max().item() if rows.numel() else 0.0
+    if err > 1e-5:
+        fail(f"{name}: a row's coefficients sum to 1 +- {err}")
+
+
+def sums_close_or_fail(name, got, want, abs_sum, tol=1e-5):
+    """Two sums of the same terms in another order: per entry, the gap
+    within ``tol`` of the sum of the terms' magnitudes (``abs_sum``),
+    the size of a summation-order difference; a row of many terms that
+    cancel has a small sum but not a small gap. Returns the largest
+    gap."""
+    gap = (got - want).abs()
+    if got.shape != want.shape or bool((gap > tol * abs_sum + 1e-30).any()):
+        worst = (gap / abs_sum.clamp(min=1e-30)).max().item()
+        fail(f"{name}: kernel and plain version differ by up to {worst} of "
+             "the sum of the terms' magnitudes")
+    return gap.max().item() if gap.numel() else 0.0
+
+
+def phase_gatv2_kernels(engine, data, seeds, key, reps, records, n_cls,
+                        seed):
+    """Phase 2, GATv2 half: the edge-softmax kernel (B8) on the logits of
+    the first LABOR-0 GATv2 batch at each layer (heads 8, 8, 1), the
+    per-edge scatter in both forms (dst-sorted: ``scatter_edges``;
+    through ``src_perm``: the backward of ``gather_src``) at that
+    batch's widths, then adversarial cases."""
+    from repro_torch import ops as TO
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.kernels.edge_softmax import ops as ek
+    from repro_torch.kernels.edge_softmax import ref as er
+    from repro_torch.kernels.spmm import ops as sk
+    from repro_torch.kernels.spmm import ref as sr
+    from repro_torch.models import gnn as gnn_models
+
+    blocks, feats = engine.sample_batch(data, seeds, key)
+    model = gnn_models.gatv2_init(rng_lib.key(seed), feats.shape[1], 256,
+                                  n_cls, len(blocks), device=DEV)
+    with torch.no_grad():
+        calls = capture(TO, "edge_softmax", lambda: model(
+            blocks, feats, backend="eager"))
+    if len(calls) != len(blocks):
+        fail(f"GATv2 ran edge_softmax {len(calls)} times for {len(blocks)} "
+             "layers")
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    for i, ((blk, logit), _) in enumerate(calls):
+        layer = len(blocks) - 1 - i          # the block's index
+        logit = logit.contiguous()
+        live = torch.clamp(blk.num_edges, max=blk.edge_cap)
+        n, (E, H), S = int(live), logit.shape, blk.seed_cap
+        sargs = (blk.dst_slot, blk.edge_mask, logit, S)
+        got = ek.edge_softmax_rows(*sargs, live)
+        want = er.edge_softmax_ref(*sargs)
+        torch.cuda.synchronize()
+        err = allclose_or_fail(f"edge_softmax layer {layer}", got, want)
+        check_softmax_rows(f"edge_softmax layer {layer}", got, blk.dst_slot,
+                           blk.edge_mask, S)
+        # the live logits, slots and mask read once, every coefficient
+        # written once; per live logit two expf, two subtractions, an add
+        # and a division
+        t = records["edge_softmax"].add(
+            cuda_ms(lambda: ek.edge_softmax_rows(*sargs, live), reps),
+            cuda_ms(lambda: er.edge_softmax_ref(*sargs), reps), None,
+            nbytes=n * H * 4 + n * 5 + E * H * 4, flops=6.0 * n * H, err=err)
+        emit({"phase": "kernels", "kernel": "edge_softmax", "layer": layer,
+              "E": E, "H": H, "S": S, "live": n, "max_abs_err": err,
+              "library": "none: no single PyTorch call computes a segment "
+                         "softmax", **t})
+        del got, want
+        # the per-edge scatter at this layer's message width
+        F = model.layers[i].b.shape[0]
+        vals = torch.randn(E, F, generator=gen, device=DEV)
+        for form, index, perm, rows in (
+                ("dst-sorted", blk.dst_slot, None, S),
+                ("src_perm", blk.src_slot, blk.src_perm, blk.next_cap)):
+            got = sk.scatter_rows(index, blk.edge_mask, vals, rows, perm=perm,
+                                  n_live=live)
+            want = sr.scatter_rows_ref(index, blk.edge_mask, vals, rows, perm)
+            # through src_perm a row is a source vertex, and popular
+            # ones sum hundreds of edges
+            abs_sum = sr.scatter_rows_ref(index, blk.edge_mask, vals.abs(),
+                                          rows)
+            torch.cuda.synchronize()
+            err = sums_close_or_fail(f"scatter_rows {form} layer {layer}",
+                                     got, want, abs_sum)
+            keep = blk.edge_mask & (index >= 0)
+            idx, v = index[keep].long(), vals[keep]
+
+            def library(idx=idx, v=v, rows=rows, F=F):
+                return torch.zeros(rows, F, device=DEV).index_add_(0, idx, v)
+
+            sums_close_or_fail(f"scatter_rows {form} library layer {layer}",
+                               library(), want, abs_sum)
+            t = records["scatter_rows"].add(
+                cuda_ms(lambda: sk.scatter_rows(index, blk.edge_mask, vals,
+                                                rows, perm=perm, n_live=live),
+                        reps),
+                cuda_ms(lambda: sr.scatter_rows_ref(index, blk.edge_mask,
+                                                    vals, rows, perm), reps),
+                cuda_ms(library, reps),
+                nbytes=n * F * 4 + n * (9 if perm is not None else 5)
+                + rows * F * 4, flops=float(n * F), err=err)
+            emit({"phase": "kernels", "kernel": "scatter_rows", "form": form,
+                  "layer": layer, "E": E, "F": F, "rows": rows, "live": n,
+                  "max_abs_err": err, **t})
+            del got, want, abs_sum, idx, v
+        del vals
+    E = blocks[-1].edge_cap
+    del calls, blocks, feats, model
+    torch.cuda.empty_cache()
+    attention_scores(E, 8, 32)
+    adversarial_gatv2(ek, er, sk, sr)
+
+
+def attention_scores(E, H, P):
+    """GATv2's per-edge scores ``sum_p e[:, h, p] attn[h, p]``, forward
+    and backward, two ways at the first layer's shape: ``torch.einsum``
+    (whose ``attn`` gradient cuBLAS runs as one GEMV over all E edges)
+    and the product with ``attn``'s block-diagonal (H*P, H) matrix that
+    the model runs. One timed call each (CUDA events) after a warm-up;
+    their gradients for ``attn`` agree to 1e-5 relative L2, those for
+    ``e`` (the same products) to 1e-6 of their largest entry."""
+    g = torch.Generator(device=DEV).manual_seed(6)
+    e = torch.randn(E, H, P, generator=g, device=DEV, requires_grad=True)
+    attn = torch.randn(H, P, generator=g, device=DEV, requires_grad=True)
+    cot = torch.randn(E, H, generator=g, device=DEV)
+
+    def einsum():
+        return torch.autograd.grad(torch.einsum("ehp,hp->eh", e, attn),
+                                   (e, attn), cot)
+
+    def block_diagonal():
+        blocks = torch.block_diag(*attn[:, :, None].unbind(0))
+        return torch.autograd.grad(e.view(E, H * P) @ blocks, (e, attn), cot)
+
+    de_ref, dattn_ref = einsum()
+    de, dattn = block_diagonal()
+    de_err = ((de - de_ref).abs().max() / de_ref.abs().max()).item()
+    if de_err > 1e-6:
+        fail(f"attention scores: d e differs by {de_err} of its largest entry")
+    dattn_err = kernel_vs_plain("attention scores", [dattn], [dattn_ref],
+                                ["d attn"], tol=1e-5)
+    del de, dattn, de_ref, dattn_ref
+    emit({"phase": "kernels", "attention_scores": {"E": E, "H": H, "P": P},
+          "einsum_fwd_bwd_ms": cuda_ms(einsum, 1),
+          "block_diagonal_fwd_bwd_ms": cuda_ms(block_diagonal, 1),
+          "d_e_max_rel_err": de_err, "d_attn_rel_l2": dattn_err[0]})
+    del e, attn, cot
+    torch.cuda.empty_cache()
+
+
+def adversarial_gatv2(ek, er, sk, sr):
+    """Edge cases of the edge-softmax kernel (to 1e-6) and the per-edge
+    scatter (to 1e-5)."""
+    from repro_torch.kernels.frontier import ref as fr
+    g = torch.Generator(device=DEV).manual_seed(5)
+    cases = 0
+    # (E, S, H, live edges, masked share inside the prefix, row spread)
+    for E, S, H, live_n, masked, spread in (
+            (5000, 300, 8, 4000, 0.0, 200.0),   # rows 200 apart in logits
+            (3000, 5000, 8, 3000, 0.0, 0.0),    # mostly one edge a row
+            (1, 1, 1, 1, 0.0, 0.0), (4000, 100, 1, 3500, 0.0, 90.0),
+            (6000, 400, 8, 5000, 0.3, 0.0),     # masked inside the prefix
+            (2000, 50, 8, 0, 0.0, 0.0)):        # no live edge
+        dst, mask, live = sorted_edges(g, E, S, live_n, masked)
+        offset = (torch.rand(S, generator=g, device=DEV) - 0.5) * spread
+        logits = (torch.randn(E, H, generator=g, device=DEV) * 3
+                  + offset[dst.clamp(min=0).long()][:, None])
+        name = f"edge_softmax adversarial E={E} S={S} H={H} live={live_n}"
+        got = ek.edge_softmax_rows(dst, mask, logits, S, live)
+        allclose_or_fail(name, got, er.edge_softmax_ref(dst, mask, logits, S),
+                         tol=1e-6)
+        check_softmax_rows(name, got, dst, mask, S)
+        cases += 1
+    for E, S, T, F, live_n in ((20000, 700, 3000, 1, 15000),
+                               (20000, 700, 3000, 47, 20000),
+                               (5000, 40, 60, 256, 0)):
+        dst, mask, live = sorted_edges(g, E, S, live_n)
+        src = torch.randint(-1, T, (E,), generator=g, device=DEV,
+                            dtype=torch.int32)
+        perm = fr.compact_perm(src, mask, T)
+        vals = torch.randn(E, F, generator=g, device=DEV)
+        for index, p, rows in ((dst, None, S), (src, perm, T)):
+            got = sk.scatter_rows(index, mask, vals, rows, perm=p,
+                                  n_live=live)
+            name = f"scatter_rows adversarial E={E} F={F} perm={p is not None}"
+            allclose_or_fail(name, got,
+                             sr.scatter_rows_ref(index, mask, vals, rows, p))
+            keep = mask & (index >= 0)
+            allclose_or_fail(name + " library", got, torch.zeros(
+                rows, F, device=DEV).index_add_(0, index[keep].long(),
+                                                vals[keep]))
+            cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "adversarial_gatv2_cases": cases, "ok": True})
+
+
 def train_step_split(engine, model, state, data, seeds, key):
     """One warm train step split by CUDA events into its stages."""
     from repro_torch.runtime.engine import (gather_feats, gnn_loss_fn,
@@ -668,17 +924,19 @@ def train_step_split(engine, model, state, data, seeds, key):
     return out
 
 
+def rel_l2(a, c):
+    return ((a.double() - c.double()).norm()
+            / c.double().norm().clamp(min=1e-300)).item()
+
+
 def against_fp64(what, kernel, plain, ref, names, tol=1e-3):
     """Per tensor, the relative L2 error of the kernel path and of the
     plain path against the fp64 recompute; both must stay within
     ``tol``. Returns the worst of each, with their tensors' names."""
-    def rel(a, c):
-        return ((a.double() - c).norm() / c.norm().clamp(min=1e-300)).item()
-
     out = {"kernel": (0.0, ""), "plain": (0.0, "")}
     for n, a, b, c in zip(names, kernel, plain, ref):
         for path, x in (("kernel", a), ("plain", b)):
-            e = rel(x, c)
+            e = rel_l2(x, c)
             if e > tol:
                 fail(f"{what} {n}: the {path} path is {e} (relative L2) "
                      "from the fp64 recompute")
@@ -686,20 +944,48 @@ def against_fp64(what, kernel, plain, ref, names, tol=1e-3):
     return out
 
 
-def relu_masks(model):
-    """Record each hidden layer's ReLU mask (output > 0) in the next
-    forward; returns (list, the hooks' handles)."""
+def kernel_vs_plain(what, kernel, plain, names, tol=1e-3):
+    """Per tensor, the relative L2 distance of the kernel path from the
+    plain path (both fp32) within ``tol``; returns the worst."""
+    worst = (0.0, "")
+    for n, a, b in zip(names, kernel, plain):
+        e = rel_l2(a, b)
+        if e > tol:
+            fail(f"{what} {n}: the kernel path is {e} (relative L2) from "
+                 "the plain path")
+        worst = max(worst, (e, n))
+    return worst
+
+
+def sign_masks(model):
+    """Record, in the next forward, where each activation's input is
+    positive (its output > 0): each hidden layer's ReLU (GCN, SAGE) or
+    ELU (GATv2), and each GATv2 layer's LeakyReLU of its scores. Returns
+    (list of (site, mask), the hooks' handles)."""
     masks, handles = [], []
-    for layer in list(model.layers)[:-1]:
-        handles.append(layer.register_forward_hook(
-            lambda m, i, out: masks.append(out.detach() > 0)))
+    layers = list(model.layers)
+
+    def hook(site):
+        return lambda m, a, out: masks.append((site, out.detach() > 0))
+
+    for i, layer in enumerate(layers):
+        leaky = getattr(layer, "leaky", None)
+        if leaky is not None:
+            handles.append(leaky.register_forward_hook(
+                hook(f"layer {i} leaky_relu")))
+        if i < len(layers) - 1:
+            act = "relu" if leaky is None else "elu"
+            handles.append(layer.register_forward_hook(
+                hook(f"layer {i} {act}")))
     return masks, handles
 
 
-def recompute_step0(ds, cfg):
+def recompute_step0(ds, cfg, fp64=True):
     """Step 0 of the run again, with the kernels and with the plain
-    versions on the card, from the same initial parameters, and the
-    plain versions in fp64 as the yardstick of both."""
+    versions on the card, from the same initial parameters: blocks bit
+    for bit, and with ``fp64`` the plain versions in fp64 as the
+    yardstick of both fp32 paths; without it (a model whose fp64 pass
+    does not fit at this batch) the two fp32 paths against each other."""
     import copy
 
     from repro_torch.core import rng as rng_lib
@@ -715,23 +1001,23 @@ def recompute_step0(ds, cfg):
                         device=DEV).at(0)
     key = rng_lib.fold_in(rng_lib.key(cfg.seed + 1), 0)
     n_cls = int(ds.labels.max()) + 1
+    init = gnn_models.MODELS[cfg.model][0]
     opt = adam.AdamConfig(lr=cfg.lr)
     res = {}
     for backend in ("cuda", "eager"):
         eng = TrainEngine(sampler, opt, device=DEV, backend=backend)
         data = eng.make_data_from_dataset(ds)
-        model = gnn_models.gcn_init(rng_lib.key(cfg.seed),
-                                    ds.features.shape[1], cfg.hidden, n_cls,
-                                    len(cfg.fanouts), device=DEV)
+        model = init(rng_lib.key(cfg.seed), ds.features.shape[1], cfg.hidden,
+                     n_cls, len(cfg.fanouts), device=DEV)
         names = [n for n, _ in model.named_parameters()]
         blocks, feats = eng.sample_batch(data, seeds, key)
         labels = seed_labels(data.labels, seeds)
-        masks, handles = relu_masks(model)
+        masks, handles = sign_masks(model)
         loss, _ = gnn_loss_fn(model, blocks, feats, labels, backend)
         for h in handles:
             h.remove()
         grads = torch.autograd.grad(loss, list(model.parameters()))
-        if backend == "eager":
+        if backend == "eager" and fp64:
             m64 = copy.deepcopy(model).double()
             loss64, _ = gnn_loss_fn(m64, blocks, feats.double(), labels,
                                     "eager")
@@ -739,38 +1025,69 @@ def recompute_step0(ds, cfg):
             p64 = {n: p.detach() for n, p in m64.named_parameters()}
             p64, _, _ = adam.apply_updates(p64, dict(zip(names, g64)),
                                            adam.init_state(p64, opt), opt)
+            del m64
         model, _, m = eng.step(model, eng.init_state(model), data, seeds, key)
         res[backend] = (blocks, loss.detach(), grads,
                         [p.detach() for p in model.parameters()], m, masks)
-        del data
+        del data, feats
     (bk, lk, gk, pk, m_k, mask_k), (be, le, ge, pe, m_e, mask_e) = (
         res["cuda"], res["eager"])
     torch.cuda.synchronize()
-    compare_blocks(bk, be, f"{cfg.sampler} step 0")
+    what = f"{cfg.model} {cfg.sampler} step 0 (batch {cfg.batch_size})"
+    compare_blocks(bk, be, what)
     if not torch.equal(m_k["overflow"], m_e["overflow"]):
-        fail(f"{cfg.sampler} step 0 overflow flags differ")
+        fail(f"{what}: overflow flags differ")
+    out = {"batch": cfg.batch_size, "blocks_bit_exact": True,
+           "loss": lk.item(), "loss_plain": le.item(),
+           "sign_flips_kernel_vs_plain": {
+               site: int((a != b).sum())
+               for (site, a), (_, b) in zip(mask_k, mask_e)},
+           "num_next": [int(b.num_next) for b in bk],
+           "num_edges": [int(b.num_edges) for b in bk]}
+    if not fp64:
+        if abs(lk.item() - le.item()) > 1e-5 * abs(le.item()):
+            fail(f"{what}: loss of the kernel path {lk.item()}, plain "
+                 f"{le.item()}")
+        out["grad_rel_l2_kernel_vs_plain"] = kernel_vs_plain(
+            f"{what} gradient", gk, ge, names)
+        out["param_rel_l2_kernel_vs_plain"] = kernel_vs_plain(
+            f"{what} updated parameter", pk, pe, names)
+        return out
     for path, x in (("kernel", lk), ("plain", le)):
         if abs(x.item() - loss64.item()) > 1e-5 * abs(loss64.item()):
-            fail(f"{cfg.sampler} step 0 loss of the {path} path {x.item()}, "
-                 f"fp64 {loss64.item()}")
-    return {"blocks_bit_exact": True, "loss": lk.item(),
-            "loss_plain": le.item(), "loss_fp64": loss64.item(),
-            "grad_rel_l2_vs_fp64": against_fp64(
-                f"{cfg.sampler} step 0 gradient", gk, ge, g64, names),
-            "param_rel_l2_vs_fp64": against_fp64(
-                f"{cfg.sampler} step 0 updated parameter", pk, pe,
-                [p64[n] for n in names], names),
-            "relu_flips_kernel_vs_plain": [int((a != b).sum()) for a, b in
-                                           zip(mask_k, mask_e)],
-            "num_next": [int(b.num_next) for b in bk],
-            "num_edges": [int(b.num_edges) for b in bk]}
+            fail(f"{what}: loss of the {path} path {x.item()}, fp64 "
+                 f"{loss64.item()}")
+    out.update(loss_fp64=loss64.item(),
+               grad_rel_l2_vs_fp64=against_fp64(
+                   f"{what} gradient", gk, ge, g64, names),
+               param_rel_l2_vs_fp64=against_fp64(
+                   f"{what} updated parameter", pk, pe,
+                   [p64[n] for n in names], names))
+    return out
 
 
-#: every sampler trained in phase 4, and the kernels only its path runs
-#: (every path runs compact, hash_dedup, compact_perm and both SpMMs)
-TRAIN_SAMPLERS = {"labor-0": (), "ns": ("segment_select",), "labor-1": (),
-                  "labor-*": (), "labor-d": (),
-                  "ladies": ("masked_cdf_draw",), "pladies": ()}
+#: the kernels every sampling path runs, and those of each model
+SAMPLING = ("compact", "hash_dedup", "compact_perm")
+MODEL_KERNELS = {"gcn": ("spmm", "spmm_t"), "sage": ("spmm", "spmm_t"),
+                 "gatv2": ("gather_dst", "scatter_rows", "edge_softmax")}
+#: the kernels of each model's forward (a served request)
+FORWARD_KERNELS = {"gcn": ("spmm",), "sage": ("spmm",),
+                   "gatv2": MODEL_KERNELS["gatv2"]}
+#: phase 4's training paths: name -> (sampler, model, kernels only that
+#: sampler runs)
+TRAIN_PATHS = {"labor-0": ("labor-0", "gcn", ()),
+               "ns": ("ns", "gcn", ("segment_select",)),
+               "labor-1": ("labor-1", "gcn", ()),
+               "labor-*": ("labor-*", "gcn", ()),
+               "labor-d": ("labor-d", "gcn", ()),
+               "ladies": ("ladies", "gcn", ("masked_cdf_draw",)),
+               "pladies": ("pladies", "gcn", ()),
+               "sage": ("labor-0", "sage", ()),
+               "gatv2": ("labor-0", "gatv2", ())}
+#: GATv2's fp64 step-0 yardstick runs at this batch: at 1024 seeds its
+#: first layer holds a few (9.4 M, 256) tensors, which fp64 doubles past
+#: the card's memory
+GATV2_FP64_BATCH = 256
 
 
 def importance_iterations(engine, data, seeds, key):
@@ -795,8 +1112,9 @@ def importance_iterations(engine, data, seeds, key):
              "solves": [int(n) for n in lg["solves"]]} for lg in logs]
 
 
-def phase_train(ds, opts, fk, sk):
-    """Phase 4: train each sampler through the launcher's path."""
+def phase_train(ds, opts):
+    """Phase 4: train each path of TRAIN_PATHS through the launcher's
+    path."""
     from repro_torch.core import cs_solve
     from repro_torch.core import rng as rng_lib
     from repro_torch.data.gnn_loader import SeedBatches
@@ -805,33 +1123,33 @@ def phase_train(ds, opts, fk, sk):
     from repro_torch.runtime.engine import TrainEngine
 
     paths = {}
-    for name, own in TRAIN_SAMPLERS.items():
+    for name, (sampler, model_name, own) in TRAIN_PATHS.items():
         args = train.parser().parse_args([
             "--device", DEV, "--dataset", "products",
-            "--scale", str(opts.scale), "--sampler", name,
-            "--fanouts", "10,10,10", "--batch-size", "1024",
-            "--steps", str(opts.steps), "--seed", str(opts.seed)])
+            "--scale", str(opts.scale), "--sampler", sampler,
+            "--model", model_name, "--fanouts", "10,10,10",
+            "--batch-size", "1024", "--steps", str(opts.steps),
+            "--seed", str(opts.seed)])
         cfg = train.config(args)
         # warm-up (first use of each cuBLAS shape, the allocator's pools):
         # two steps, outside the counts and the timing
         train.train_report(ds, dataclasses.replace(cfg, steps=2))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fk.reset_launches()
-        sk.reset_launches()
+        reset_launches()
         report, out = train.train_report(ds, cfg)
         torch.cuda.synchronize()
-        launches = dict(fk.LAUNCHES, **sk.LAUNCHES)
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        for k in ("compact", "hash_dedup", "compact_perm", "spmm",
-                  "spmm_t") + own:
+        for k in SAMPLING + MODEL_KERNELS[model_name] + own:
             if launches[k] <= 0:
                 fail(f"kernel {k} was not launched on the {name} training "
                      "path")
         losses = [h["loss"] for h in out["history"]]
         if len(losses) != opts.steps or not all(map(math.isfinite, losses)):
             fail(f"{name}: losses {losses}")
-        emit({"phase": "train", "sampler": name, "report": report,
+        emit({"phase": "train", "path": name, "sampler": sampler,
+              "model": model_name, "report": report,
               "losses": losses, "launches": launches,
               "steps_per_s": opts.steps / out["wall_time"],
               "sampled_v_per_step": [h["sampled_v"] for h in out["history"]],
@@ -839,8 +1157,14 @@ def phase_train(ds, opts, fk, sk):
               "avg_sampled_vertices": report["avg_sampled_vertices"],
               "final_caps": [c.__dict__ for c in out["sampler"].caps],
               "peak_memory_gib": peak})
-        check = recompute_step0(ds, cfg)
-        emit({"phase": "train", "sampler": name,
+        fp64 = model_name != "gatv2"
+        check = recompute_step0(ds, cfg, fp64=fp64)
+        if not fp64:
+            torch.cuda.empty_cache()
+            check["fp64_yardstick"] = recompute_step0(
+                ds, dataclasses.replace(cfg, batch_size=GATV2_FP64_BATCH))
+        torch.cuda.empty_cache()
+        emit({"phase": "train", "path": name,
               "recompute": "step 0 with the plain versions on the card",
               **check})
         eng = TrainEngine(out["sampler"], adam.AdamConfig(lr=cfg.lr),
@@ -864,7 +1188,7 @@ def phase_train(ds, opts, fk, sk):
         if name.startswith("labor-") and name not in ("labor-0", "labor-d"):
             split["importance_iterations"] = importance_iterations(
                 eng, data, seeds, key)
-        emit({"phase": "train", "sampler": name, "warm_step": split})
+        emit({"phase": "train", "path": name, "warm_step": split})
         # a window of warm steps through TrainEngine.step (the ledger's
         # one-step-late flag read included) under the profiler
         n_win = 5
@@ -878,18 +1202,21 @@ def phase_train(ds, opts, fk, sk):
         run(-1)   # fills the ledger, so every profiled step polls one
         window = profile_window(run, n_win)
         eng.flush(model, state, data)
-        emit({"phase": "train", "sampler": name, "window_steps": n_win,
+        emit({"phase": "train", "path": name, "window_steps": n_win,
               **window})
         paths[name] = launches
-        del data, eng
+        del data, eng, model, state, out
+        torch.cuda.empty_cache()
     return paths
 
 
-def phase_serve_full(ds, opts, fk, sk):
-    """Phase 3, exact inference: 2 requests with the ``full`` sampler
-    (every in-edge, caps grown on overflow) through the launcher's
-    synchronous path, counts zeroed before and read after; request 0
-    again with the plain versions on the card."""
+def phase_serve_path(ds, opts, path, sampler, model_name, depth, requests):
+    """Phase 3, a further serving path: ``requests`` requests with
+    ``sampler`` and ``model_name`` at ``depth`` layers through the
+    launcher's synchronous path, counts zeroed before and read after
+    (every kernel of the model's forward must run); request 0 again with
+    the plain versions on the card: blocks bit for bit, logits to
+    rtol = atol = 1e-4."""
     from repro_torch.core import rng as rng_lib
     from repro_torch.core.interface import pad_seeds
     from repro_torch.launch import serve
@@ -897,37 +1224,40 @@ def phase_serve_full(ds, opts, fk, sk):
 
     args = serve.parser().parse_args([
         "--device", DEV, "--dataset", "products",
-        "--scale", str(opts.scale), "--sampler", "full",
-        "--fanouts", ",".join(["10"] * FULL_DEPTH), "--hidden", "256",
-        "--batch", "1024", "--requests", "2", "--seed", str(opts.seed)])
+        "--scale", str(opts.scale), "--sampler", sampler,
+        "--model", model_name, "--fanouts", ",".join(["10"] * depth),
+        "--hidden", "256", "--batch", "1024", "--requests", str(requests),
+        "--seed", str(opts.seed)])
     built = serve.build_gnn_serving(args, ds)
     _, engine, data, model, _ = built
-    fk.reset_launches()
-    sk.reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     report = serve.serve_gnn_sync(args, built)
     torch.cuda.synchronize()
-    launches = dict(fk.LAUNCHES, **sk.LAUNCHES)
-    for name in ("compact", "hash_dedup", "compact_perm", "spmm"):
+    launches = launch_counts()
+    for name in SAMPLING + FORWARD_KERNELS[model_name]:
         if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the full serving path")
-    if report["requests_served"] != 2 or not report["exact"]:
-        fail(f"full serving: {report}")
+            fail(f"kernel {name} was not launched on the {path} path")
+    if (report["requests_served"] != requests
+            or report["exact"] != (sampler == "full")):
+        fail(f"{path}: {report}")
     seeds = pad_seeds(serve.gnn_trace(args, ds)[0], args.batch, device=DEV)
     key = rng_lib.split(rng_lib.key(args.seed + 1))[1]
     out = [TrainEngine(engine.sampler, device=DEV, backend=b).infer_blocks(
         model, data, seeds, key) for b in ("cuda", "eager")]
     torch.cuda.synchronize()
     (logits_k, flags_k, blocks_k), (logits_e, flags_e, blocks_e) = out
-    compare_blocks(blocks_k, blocks_e, "full request 0")
-    same("full request 0 overflow flags", flags_k, flags_e)
+    compare_blocks(blocks_k, blocks_e, f"{path} request 0")
+    same(f"{path} request 0 overflow flags", flags_k, flags_e)
     if bool(flags_k.any()) or not bool(torch.isfinite(logits_k).all()):
-        fail("full request 0: overflow at the grown caps or non-finite "
+        fail(f"{path} request 0: overflow at the final caps or non-finite "
              "logits")
     err = (logits_k - logits_e).abs().max().item()
     if not torch.allclose(logits_k, logits_e, rtol=1e-4, atol=1e-4):
-        fail(f"full request 0 logits differ from the plain versions by {err}")
-    emit({"phase": "serve full", "depth": FULL_DEPTH,
+        fail(f"{path} request 0 logits differ from the plain versions by "
+             f"{err}")
+    emit({"phase": path, "depth": depth, "model": model_name,
           "report": report, "launches": launches,
           "caps": [c.__dict__ for c in engine.sampler.caps],
           "logits_max_abs_err": err,
@@ -1029,8 +1359,6 @@ def main():
     from repro_torch.core.interface import pad_seeds
     from repro_torch.data.gnn_loader import SeedBatches
     from repro_torch.kernels import _build
-    from repro_torch.kernels.frontier import ops as fk
-    from repro_torch.kernels.spmm import ops as sk
     from repro_torch.launch import serve, train
     from repro_torch.runtime.engine import TrainEngine
     from repro_torch.runtime.trainer import build_sampler
@@ -1102,6 +1430,13 @@ def main():
             "masked_cdf_draw", "cuda", "src/repro_torch/csrc/search.cu",
             "src/repro/kernels/frontier/frontier.py:303, "
             "src/repro/kernels/frontier/parallel.py:503"),
+        "scatter_rows": Record(
+            "scatter_rows", "cuda", "src/repro_torch/csrc/spmm.cu",
+            "src/repro/kernels/spmm/spmm.py:31 (per-edge values, "
+            "scatter_sorted_block)"),
+        "edge_softmax": Record(
+            "edge_softmax", "cuda", "src/repro_torch/csrc/edge_softmax.cu",
+            "src/repro/kernels/edge_softmax/edge_softmax.py:42"),
     }
     phase_kernels(engine, data, seeds0, key0, opts.reps, records)
 
@@ -1120,15 +1455,18 @@ def main():
     key_t = rng_lib.fold_in(rng_lib.key(opts.seed + 1), 0)
     wgrad_launches = phase_train_kernels(samplers_, data, seeds_t, key_t,
                                          opts.reps, records)
+    n_cls = int(ds.labels.max()) + 1
+    phase_gatv2_kernels(samplers_["engine"], data, seeds_t, key_t, opts.reps,
+                        records, n_cls, opts.seed)
     del samplers_
 
     # -- phase 3: serve through the launcher's synchronous path ------------
-    fk.reset_launches()
-    sk.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     report = serve.serve_gnn_sync(args, built)
     torch.cuda.synchronize()
-    launches = dict(fk.LAUNCHES, **sk.LAUNCHES)
+    launches = launch_counts()
     emit({"phase": "serve", "launches": launches,
           "requests_served": report["requests_served"],
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
@@ -1147,7 +1485,6 @@ def main():
     torch.cuda.synchronize()
     compare_blocks(blocks_k, blocks_e)
     same("request 0 overflow flags", flags_k, flags_e)
-    n_cls = int(ds.labels.max()) + 1
     if logits_k.shape != (args.batch, n_cls) or not bool(
             torch.isfinite(logits_k).all()):
         fail(f"logits: shape {tuple(logits_k.shape)} or non-finite values")
@@ -1160,14 +1497,18 @@ def main():
           "num_next": [int(b.num_next) for b in blocks_k],
           "num_edges": [int(b.num_edges) for b in blocks_k]})
 
-    # exact inference: full neighbourhoods, at FULL_DEPTH layers
-    full_launches = phase_serve_full(ds, opts, fk, sk)
+    # exact inference: full neighbourhoods, at FULL_DEPTH layers; then
+    # GATv2 on LABOR-0's blocks
+    paths = {"serve": launches,
+             "serve full": phase_serve_path(ds, opts, "serve full", "full",
+                                            "gcn", FULL_DEPTH, 2),
+             "serve gatv2": phase_serve_path(ds, opts, "serve gatv2",
+                                             "labor-0", "gatv2", 3,
+                                             opts.requests)}
 
-    # -- phase 4: train every sampler through the launcher's path ---------
-    paths = {"serve": launches, "serve full": full_launches,
-             **{f"train {k}": v for k, v in phase_train(ds, opts, fk,
-                                                         sk).items()},
-             WGRAD_PATH: wgrad_launches}
+    # -- phase 4: train every path through the launcher's path ------------
+    paths.update({f"train {k}": v for k, v in phase_train(ds, opts).items()})
+    paths[WGRAD_PATH] = wgrad_launches
     for name, rec in records.items():
         by_path = {p: counts[name] for p, counts in paths.items()}
         rec.row["launches_by_path"] = by_path

@@ -144,6 +144,49 @@ def uniform(k: Key, shape, minval: float = 0.0,
     return torch.maximum(lo, vals).reshape(tuple(shape))
 
 
+# M. Giles' single-precision erf^-1 coefficients ("Approximating the
+# erfinv function", GPU Computing Gems), for w < 5 and for w >= 5
+_ERFINV_CENTRAL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erf^-1 by Giles' polynomial in ``w = -log1p(-x^2)``, the
+    form XLA lowers ``lax.erf_inv`` to, with each step of the coefficient
+    chain a fused multiply-add (formed exactly in float64, rounded once
+    to float32). ``torch.erfinv`` is another approximation. The result
+    is close to XLA's but not bit-exact: ``log1p`` differs in the last
+    bit now and then."""
+    x = x.to(torch.float32)
+    w = -torch.log1p(-x * x)
+    central = w < 5.0
+    w = torch.where(central, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coef(i):   # float32 constants
+        return torch.where(central, torch.tensor(_ERFINV_CENTRAL[i]),
+                           torch.tensor(_ERFINV_TAIL[i]))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_CENTRAL)):
+        p = (coef(i).double() + p.double() * w).float()
+    big = torch.tensor(torch.finfo(torch.float32).max)
+    return torch.where(x.abs() == 1.0, x * big, p * x)
+
+
+def normal(k: Key, shape) -> torch.Tensor:
+    """``jax.random.normal(k, shape)`` in float32: ``sqrt(2) *
+    erf_inv(u)`` with ``u = uniform(k, shape, nextafter(-1, 0), 1)``.
+    ``u`` matches JAX bit for bit; :func:`erf_inv` does not, so the
+    draws agree with JAX's to about 1e-7 relative."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(k, shape, lo, 1.0)
+    return torch.tensor(2.0 ** 0.5, dtype=torch.float32) * erf_inv(u)
+
+
 def key(seed: int) -> Key:
     """``jax.random.key(seed)`` for a seed in the int32 range."""
     if not -2**31 <= seed < 2**31:

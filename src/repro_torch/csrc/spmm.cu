@@ -6,14 +6,23 @@
 //     the roles swapped (the transposed SpMM), reading the edges through the
 //     block's src_perm (edge i of the sweep is edge perm[i]) so that its
 //     "dst", the edges' src_slot, is sorted too.
+//   scatter_rows: the same kernel with the edge's own value row and no
+//     weight, out[s] = sum over edges e with dst[e] = s and mask[e] of
+//     values[e] (ops.scatter_edges, the backward of ops.gather_dst and the
+//     inner segment sum of the edge_softmax backward). Through src_perm, with
+//     the edges' src_slot as "dst", it is the backward of ops.gather_src:
+//     each source row sums its edges' gradient rows in a fixed order, where
+//     an index_put_ with accumulate would add them atomically, in an order
+//     that changes from run to run.
 //   gather_dst_rows: out[e] = rows[dst[e]] for the live, masked-in edges and
 //     0 for every other edge (ops.gather_dst), the destination half of the
 //     SDDMM that is the aggregate's gradient for the edge weights.
 //
-// spmm_rows replaces the TPU kernel repro/kernels/spmm/spmm.py _spmm_kernel
-// (spmm_sorted), which multiplies a one-hot edges-to-rows matrix on the MXU
-// over row-block-aligned chunks (prepare_chunks) because scatters are slow
-// there. That layout is not carried over: on this card a gather-reduce over
+// spmm_rows and scatter_rows replace the TPU kernel
+// repro/kernels/spmm/spmm.py _spmm_kernel (spmm_sorted, and
+// scatter_sorted_block, its per-edge-value form), which multiplies a
+// one-hot edges-to-rows matrix on the MXU over row-block-aligned chunks
+// (prepare_chunks) because scatters are slow there. That layout is not carried over: on this card a gather-reduce over
 // the sorted segments fits better. The sampler's valid edges are a
 // dst-sorted prefix of length n_live (compact keeps the segment order of
 // expand_seed_edges), so each output row finds its edge range with one binary
@@ -28,7 +37,10 @@
 // far below the card's ratio of flops to bytes. Rows past the real seeds
 // have empty ranges and only write zeros. An edge whose dst is -1 (in the
 // transposed call: a source dropped by an overflowing dedup, which sorts
-// first) matches no row.
+// first) matches no row. scatter_rows reads each live edge's value row once
+// and adds it (1 flop per float), so it is bound by bytes the same way; its
+// widths run from F = 1 (edge_softmax with one head) to 256, and a width
+// below 128 leaves lanes of the warp idle (the c < F guard).
 //
 // gather_dst_rows replaces repro/kernels/spmm/spmm.py _gather_kernel
 // (gather_rows_sorted, via gather_dst_block), which multiplies a one-hot
@@ -68,6 +80,9 @@ __device__ __forceinline__ int lower_bound(const int* a, const int* perm,
   return lo;
 }
 
+// kEdgeValues: the value row of edge e is h[e] itself, unweighted
+// (scatter_rows); otherwise w[e] * h[src[e]] (spmm_rows).
+template <bool kEdgeValues>
 __global__ void spmm_rows_kernel(const int* dst, const int* src,
                                  const float* w, const uint8_t* mask,
                                  const int* perm, int E, const int* n_live,
@@ -94,6 +109,15 @@ __global__ void spmm_rows_kernel(const int* dst, const int* src,
     for (int i = lo; i < hi; ++i) {
       const int e = edge_at(perm, i);
       if (!mask[e]) continue;
+      if (kEdgeValues) {
+        const float* vr = h + (long)e * F;
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          const int c = c0 + 32 * k;
+          if (c < F) acc[k] = __fadd_rn(acc[k], vr[c]);
+        }
+        continue;
+      }
       int s = src[e];
       if (s < 0) s += T;  // the plain version's negative-index wrap
       const float we = w[e];
@@ -143,17 +167,33 @@ __global__ void gather_rows_kernel(const int* dst, const uint8_t* mask, int E,
 
 }  // namespace
 
-extern "C" int spmm_rows(const int* dst, const int* src, const float* w,
-                         const uint8_t* mask, const int* perm, int E,
-                         const int* n_live, const float* h, int T, int F,
-                         int S, float* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+static int row_blocks(int S, int F) {
   const long items = (long)S * ((F + kSlice - 1) / kSlice);
   long blocks = (items * 32 + kThreads - 1) / kThreads;
   if (blocks > kGridCap) blocks = kGridCap;
   if (blocks < 1) blocks = 1;
-  spmm_rows_kernel<<<(int)blocks, kThreads, 0, st>>>(
+  return (int)blocks;
+}
+
+extern "C" int spmm_rows(const int* dst, const int* src, const float* w,
+                         const uint8_t* mask, const int* perm, int E,
+                         const int* n_live, const float* h, int T, int F,
+                         int S, float* out, void* stream) {
+  spmm_rows_kernel<false><<<row_blocks(S, F), kThreads, 0,
+                            (cudaStream_t)stream>>>(
       dst, src, w, mask, perm, E, n_live, h, T, F, S, out);
+  return (int)cudaGetLastError();
+}
+
+// values: (E, F), one row per edge in the edges' own order (perm only
+// changes the order in which each output row reads its edges).
+extern "C" int scatter_rows(const int* dst, const uint8_t* mask,
+                            const int* perm, int E, const int* n_live,
+                            const float* values, int F, int S, float* out,
+                            void* stream) {
+  spmm_rows_kernel<true><<<row_blocks(S, F), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      dst, nullptr, nullptr, mask, perm, E, n_live, values, E, F, S, out);
   return (int)cudaGetLastError();
 }
 

@@ -27,7 +27,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-SOURCES = ("frontier", "search", "select", "spmm")
+SOURCES = ("edge_softmax", "frontier", "search", "select", "spmm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,7 +44,9 @@ SIGNATURES = {
                                            _P, _P, _P]),
     "spmm_rows": ("spmm", [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P,
                            _P]),
+    "scatter_rows": ("spmm", [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P]),
     "gather_dst_rows": ("spmm", [_P, _P, _I, _P, _P, _I, _I, _P, _P]),
+    "edge_softmax": ("edge_softmax", [_P, _P, _I, _P, _P, _I, _I, _P, _P]),
 }
 
 _LOCK = threading.Lock()

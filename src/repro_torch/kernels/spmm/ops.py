@@ -2,7 +2,10 @@
 
 ``spmm_block`` and ``spmm_transposed`` launch the SpMM kernel, which
 replaces the TPU ``_spmm_kernel`` of ``repro/kernels/spmm/spmm.py`` on
-the ``aggregate`` forward and on its backward for h; ``gather_dst_rows``
+the ``aggregate`` forward and on its backward for h; ``scatter_rows``
+launches its per-edge-value form (the reference's
+``scatter_sorted_block``: ``scatter_edges``, the backwards of
+``gather_dst``, ``gather_src`` and ``edge_softmax``); ``gather_dst_rows``
 launches the row gather that replaces ``_gather_kernel`` (the SDDMM's
 destination half, ``ops.gather_dst``).
 
@@ -31,7 +34,7 @@ from repro_torch.kernels.spmm import ref
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 #: (``spmm_t`` counts the transposed SpMM of the backward)
-LAUNCHES = {"spmm": 0, "spmm_t": 0, "gather_dst": 0}
+LAUNCHES = {"spmm": 0, "spmm_t": 0, "gather_dst": 0, "scatter_rows": 0}
 
 
 def reset_launches() -> None:
@@ -100,6 +103,39 @@ def spmm_transposed(src_slot: torch.Tensor, dst_slot: torch.Tensor,
     out = _spmm(dst_slot, src_slot, weight, mask, g, num_rows, n_live,
                 perm=perm)
     LAUNCHES["spmm_t"] += 1
+    return out
+
+
+def scatter_rows(dst_slot: torch.Tensor, mask: torch.Tensor,
+                 values: torch.Tensor, num_rows: int,
+                 perm: Optional[torch.Tensor] = None,
+                 n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum each edge's own row of ``values`` into its ``dst_slot`` row,
+    unweighted (contract: ``ref.scatter_rows_ref``); values float32
+    (E, F) -> (num_rows, F), every row written. With ``perm`` (a
+    ``src_perm``) the edges are read in that order, which must sort the
+    live prefix by ``dst_slot``: pass the edges' ``src_slot`` as
+    ``dst_slot`` for the backward of ``gather_src``."""
+    if values.device.type == "cpu":
+        return ref.scatter_rows_ref(dst_slot, mask, values, num_rows, perm)
+    dev = values.device
+    _check("dst_slot", dst_slot, torch.int32, dev)
+    _check("mask", mask, torch.bool, dev)
+    _check_live(n_live, dev)
+    if perm is not None:
+        _check("perm", perm, torch.int32, dev)
+    _check_rows("values", values)
+    E, F = values.shape
+    if not (dst_slot.shape[0] == mask.shape[0] == E
+            and (perm is None or perm.shape[0] == E)):
+        raise ValueError("edge arrays differ in length")
+    out = torch.empty(num_rows, F, dtype=torch.float32, device=dev)
+    status = _build.function("scatter_rows")(
+        _build.ptr(dst_slot), _build.ptr(mask), _build.ptr(perm), E,
+        _build.ptr(n_live), _build.ptr(values), F, num_rows, _build.ptr(out),
+        _stream(dev))
+    _build.check(status, "scatter_rows")
+    LAUNCHES["scatter_rows"] += 1
     return out
 
 

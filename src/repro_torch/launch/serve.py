@@ -1,6 +1,6 @@
 """GNN serving on the card (twin of ``repro.launch.serve``, synchronous
 path): a stream of seed requests over the validation ids, each answered
-by one sample -> gather -> GCN forward through ``TrainEngine``, with
+by one sample -> gather -> model forward through ``TrainEngine``, with
 the overflow-retry contract and the same JSON report as the reference's
 ``--driver off``:
 
@@ -12,9 +12,11 @@ the overflow-retry contract and the same JSON report as the reference's
 default is the reference's ``full``, the exact full-neighbourhood
 aggregation. ``--device cuda`` (the default) runs the CUDA kernels and
 fails if there is no card; ``--device cpu`` runs the plain versions on
-the CPU. The model's weights come from ``gcn_init(key(seed))``, the
-reference's initialisation bit for bit, and the sampled sets for a
-given ``--seed`` are the same. ``--driver async`` and ``--workload lm``
+the CPU. ``--model`` takes ``gcn`` (the default), ``sage`` or
+``gatv2``; its weights come from the model's init at ``key(seed)``, the
+reference's initialisation (GATv2's ``attn`` to ~1e-7 relative, the
+rest bit for bit), and the sampled sets for a given ``--seed`` are the
+same. ``--driver async`` and ``--workload lm``
 are not ported yet.
 """
 from __future__ import annotations
@@ -46,9 +48,9 @@ def build_gnn_serving(args, ds=None):
     sampler = samplers.from_dataset(args.sampler, ds, batch_size=args.batch,
                                     fanouts=fanouts, safety=2.0)
     engine = TrainEngine(sampler, device=args.device)
-    model = gnn_models.gcn_init(rng_lib.key(args.seed), ds.features.shape[1],
-                                args.hidden, n_cls, len(fanouts),
-                                device=engine.device)
+    init = gnn_models.MODELS[args.model][0]
+    model = init(rng_lib.key(args.seed), ds.features.shape[1], args.hidden,
+                 n_cls, len(fanouts), device=engine.device)
     data = engine.make_data_from_dataset(ds)
     return ds, engine, data, model, np.asarray(ds.labels)
 
@@ -130,6 +132,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--list-samplers",
                     action=samplers.make_list_samplers_action(),
                     help="print the sampler registry and exit")
+    ap.add_argument("--model", default="gcn",
+                    choices=sorted(gnn_models.MODELS))
     ap.add_argument("--fanouts", default="10,10,10")
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--requests", type=int, default=8)

@@ -1,6 +1,6 @@
 """GNN training on the card (twin of ``repro.launch.train``, ``--workload
-gnn``): the paper's GCN trained on sampled blocks with Adam, printing
-the reference launcher's JSON report.
+gnn``): the paper's GCN, GraphSAGE or GATv2 (``--model``) trained on
+sampled blocks with Adam, printing the reference launcher's JSON report.
 
   PYTHONPATH=src python -m repro_torch.launch.train --workload gnn \\
       --dataset products --scale 0.25 --sampler labor-0 \\
@@ -14,7 +14,8 @@ the reference launcher's JSON report.
 (the default) runs the CUDA kernels and fails if there is no card;
 ``--device cpu`` runs the plain versions on the CPU. With the same
 ``--seed`` the run starts from the reference's parameters and draws the
-reference's batches and sampled sets. The hidden width is the
+reference's batches and sampled sets. ``--model`` takes ``gcn`` (the
+default), ``sage`` or ``gatv2`` (8 heads of 32); the hidden width is the
 reference's 256. ``--workload lm`` is not ported yet.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ import sys
 import torch
 
 from repro_torch.core import samplers
+from repro_torch.models import gnn as gnn_models
 
 
 def parser() -> argparse.ArgumentParser:
@@ -40,7 +42,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--list-samplers",
                     action=samplers.make_list_samplers_action(),
                     help="print the sampler registry and exit")
-    ap.add_argument("--model", default="gcn", choices=["gcn"])
+    ap.add_argument("--model", default="gcn",
+                    choices=sorted(gnn_models.MODELS))
     ap.add_argument("--fanouts", default="10,10,10")
     ap.add_argument("--layer-sizes", default=None,
                     help="comma-separated per-layer budgets for (p)ladies")

@@ -1,8 +1,8 @@
 """Graph-ops primitives behind the backend registry (twin of
-``repro.ops``): the model's ``aggregate`` (differentiable on both
-backends), the SDDMM pieces ``gather_dst``/``gather_src``/``sddmm`` of
-its weight gradient, and the frontier family the sampler's block
-epilogue runs on."""
+``repro.ops``): the models' ``aggregate`` (the weighted SpMM), the
+per-edge pieces GATv2 is built from (``scatter_edges``, ``gather_dst``,
+``gather_src``, ``sddmm``, ``edge_softmax``), all differentiable on both
+backends, and the frontier family the sampler's block epilogue runs on."""
 from __future__ import annotations
 
 from typing import TYPE_CHECKING, Optional
@@ -26,36 +26,50 @@ def aggregate(blk: "SampledLayer", h: torch.Tensor, *,
     return get_backend(backend, h.device).aggregate(blk, h)
 
 
+def scatter_edges(blk: "SampledLayer", values: torch.Tensor, *,
+                  backend: Optional[str] = None) -> torch.Tensor:
+    """Segment-sum per-edge rows (edge_cap, F) into seed rows
+    (seed_cap, F), masked edges left out."""
+    return get_backend(backend, values.device).scatter_edges(blk, values)
+
+
 def gather_dst(blk: "SampledLayer", rows: torch.Tensor, *,
                backend: Optional[str] = None) -> torch.Tensor:
     """Per-edge fetch of destination-row values, 0 on masked edges:
-    rows (seed_cap, F) -> (edge_cap, F). Its transpose
-    (``scatter_edges``) is not ported, so the ``cuda`` backend refuses
-    rows that need a gradient."""
+    rows (seed_cap, F) -> (edge_cap, F). The transpose of
+    :func:`scatter_edges`."""
     return get_backend(backend, rows.device).gather_dst(blk, rows)
 
 
-def gather_src(blk: "SampledLayer", rows: torch.Tensor) -> torch.Tensor:
+def gather_src(blk: "SampledLayer", rows: torch.Tensor, *,
+               backend: Optional[str] = None) -> torch.Tensor:
     """Per-edge fetch of source-row values, 0 on masked edges: rows
-    (next_cap, F) -> (edge_cap, F). A plain gather on every backend."""
-    safe = torch.where(blk.edge_mask, blk.src_slot, 0).long()
-    return rows[safe] * blk.edge_mask[:, None].to(rows.dtype)
+    (next_cap, F) -> (edge_cap, F)."""
+    return get_backend(backend, rows.device).gather_src(blk, rows)
 
 
 def sddmm(blk: "SampledLayer", u: torch.Tensor, v: torch.Tensor, *,
-          op: str = "dot", backend: Optional[str] = None) -> torch.Tensor:
-    """Sampled dense-dense product per edge: u (seed_cap, F) on the dst
-    side, v (next_cap, F) on the src side; ``op="dot"`` gives
-    <u[dst], v[src]> (edge_cap,), the SpMM's weight gradient. ``op="add"``
-    (GATv2's scores) is not ported yet."""
-    if op != "dot":
-        raise NotImplementedError(f"sddmm op {op!r} is not ported; only "
-                                  "'dot'")
-    return torch.sum(gather_dst(blk, u, backend=backend) * gather_src(blk, v),
-                     dim=-1)
+          op: str = "add", backend: Optional[str] = None) -> torch.Tensor:
+    """Sampled dense-dense combine per edge: u (seed_cap, F) on the dst
+    side, v (next_cap, F) on the src side. ``op="add"`` gives
+    u[dst] + v[src] (edge_cap, F), GATv2's scores; ``op="dot"`` gives
+    <u[dst], v[src]> (edge_cap,), the SpMM's weight gradient. Masked
+    edges are 0; differentiable on both backends."""
+    if op not in ("add", "dot"):
+        raise ValueError(f"sddmm op must be 'add' or 'dot', got {op!r}")
+    ud = gather_dst(blk, u, backend=backend)
+    vs = gather_src(blk, v, backend=backend)
+    return ud + vs if op == "add" else torch.sum(ud * vs, dim=-1)
+
+
+def edge_softmax(blk: "SampledLayer", logits: torch.Tensor, *,
+                 backend: Optional[str] = None) -> torch.Tensor:
+    """Normalise edge logits (edge_cap, H) into attention coefficients
+    per destination row, 0 on masked edges."""
+    return get_backend(backend, logits.device).edge_softmax(blk, logits)
 
 
 __all__ = ["BACKEND_CHOICES", "aggregate", "compact", "compact_perm",
-           "gather_dst", "gather_src", "get_backend", "hash_dedup",
-           "masked_cdf_draw", "resolve_backend", "sddmm",
-           "segment_select"]
+           "edge_softmax", "gather_dst", "gather_src", "get_backend",
+           "hash_dedup", "masked_cdf_draw", "resolve_backend",
+           "scatter_edges", "sddmm", "segment_select"]

@@ -1,8 +1,9 @@
 """Graph-ops backend registry (twin of ``repro.ops.backend``).
 
 A backend is a namespace providing the primitives of ``repro_torch.ops``
-(``aggregate``, ``gather_dst`` and the frontier family ``hash_dedup``,
-``compact``, ``compact_perm``, ``segment_select``, ``masked_cdf_draw``).
+(``aggregate``, ``scatter_edges``, ``gather_dst``, ``gather_src``,
+``edge_softmax`` and the frontier family ``hash_dedup``, ``compact``,
+``compact_perm``, ``segment_select``, ``masked_cdf_draw``).
 Two ship:
 
   * ``"cuda"``  -- the hand-written Hopper kernels (``repro_torch.ops.cuda``);

@@ -9,9 +9,11 @@ from typing import TYPE_CHECKING
 
 import torch
 
+from repro_torch.kernels.edge_softmax.ref import edge_softmax_ref
 from repro_torch.kernels.frontier.ref import (  # noqa: F401
     compact, compact_perm, hash_dedup, masked_cdf_draw, segment_select)
-from repro_torch.kernels.spmm.ref import gather_dst_ref, spmm_block_ref
+from repro_torch.kernels.spmm.ref import (gather_dst_ref, gather_rows_ref,
+                                          scatter_rows_ref, spmm_block_ref)
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.interface import SampledLayer
@@ -27,3 +29,23 @@ def aggregate(blk: "SampledLayer", h: torch.Tensor) -> torch.Tensor:
 def gather_dst(blk: "SampledLayer", rows: torch.Tensor) -> torch.Tensor:
     """rows[dst_slot] per edge, 0 on masked edges."""
     return gather_dst_ref(blk.dst_slot, blk.edge_mask, rows)
+
+
+def scatter_edges(blk: "SampledLayer", values: torch.Tensor) -> torch.Tensor:
+    """Unweighted segment sum of per-edge rows into seed rows: values
+    (edge_cap, F) -> (seed_cap, F)."""
+    return scatter_rows_ref(blk.dst_slot, blk.edge_mask, values,
+                            blk.seed_cap)
+
+
+def gather_src(blk: "SampledLayer", rows: torch.Tensor) -> torch.Tensor:
+    """rows[src_slot] per edge, 0 on masked edges (the reference's
+    gather: a negative slot wraps to the last row)."""
+    return gather_rows_ref(rows, blk.src_slot, blk.edge_mask)
+
+
+def edge_softmax(blk: "SampledLayer", logits: torch.Tensor) -> torch.Tensor:
+    """Per-destination segment softmax of edge logits (edge_cap, H), 0
+    on masked edges."""
+    return edge_softmax_ref(blk.dst_slot, blk.edge_mask, logits,
+                            blk.seed_cap)

@@ -4,7 +4,8 @@
 
 The batch schedule is a pure function of the step: seeds
 ``SeedBatches.at(step)``, key ``fold_in(key(seed + 1), step)``, as in
-the reference; the parameters start from ``gcn_init(key(seed))``. Every
+the reference; the parameters start from the model's init (``MODELS``:
+``gcn``, ``sage`` or ``gatv2``) at ``key(seed)``. Every
 step goes through :meth:`TrainEngine.step` (the reference's fused path)
 with its one-step-late overflow replay. Checkpoints, the guardrail, the
 pipelined driver and the mesh are not ported: asking for them raises
@@ -32,7 +33,7 @@ from repro_torch.runtime.engine import TrainEngine, gather_feats
 
 @dataclasses.dataclass
 class GNNTrainConfig:
-    model: str = "gcn"
+    model: str = "gcn"                  # gcn | sage | gatv2
     hidden: int = 256
     fanouts: tuple = (10, 10, 10)
     sampler: str = "labor-0"            # a repro_torch.core.samplers entry
@@ -53,11 +54,14 @@ class GNNTrainConfig:
         unported = [name for name, off in (
             ("pipeline", self.pipeline == "off"),
             ("mesh_devices", self.mesh_devices == 0),
-            ("guard", self.guard == "off"), ("ckpt_dir", self.ckpt_dir is None),
-            (f"model {self.model!r}", self.model == "gcn")) if not off]
+            ("guard", self.guard == "off"),
+            ("ckpt_dir", self.ckpt_dir is None)) if not off]
         if unported:
             raise NotImplementedError(
                 f"not ported to repro_torch yet: {', '.join(unported)}")
+        if self.model not in gnn_models.MODELS:
+            raise ValueError(f"unknown model {self.model!r}; choose from "
+                             f"{sorted(gnn_models.MODELS)}")
 
 
 def build_sampler(ds: GraphDataset, cfg: GNNTrainConfig) -> Sampler:
@@ -80,9 +84,9 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig) -> Dict[str, Any]:
     engine = TrainEngine(build_sampler(ds, cfg), adam.AdamConfig(lr=cfg.lr),
                          device=cfg.device, stats=stats)
     in_dim, n_cls = ds.features.shape[1], int(ds.labels.max()) + 1
-    model = gnn_models.gcn_init(rng_lib.key(cfg.seed), in_dim, cfg.hidden,
-                                n_cls, len(cfg.fanouts),
-                                device=engine.device)
+    init = gnn_models.MODELS[cfg.model][0]
+    model = init(rng_lib.key(cfg.seed), in_dim, cfg.hidden, n_cls,
+                 len(cfg.fanouts), device=engine.device)
     data = engine.make_data_from_dataset(ds)
     state = engine.init_state(model)
     batches = SeedBatches(ds.train_idx, cfg.batch_size, seed=cfg.seed,

@@ -13,13 +13,16 @@ from repro_torch.core import rng as TR  # noqa: E402
 from repro_torch.core import samplers as TS  # noqa: E402
 from repro_torch.core.interface import INT_FIELDS, pad_seeds  # noqa: E402
 from repro_torch.graph.generators import paper_dataset  # noqa: E402
+from repro_torch.kernels.edge_softmax import ops as ek  # noqa: E402
+from repro_torch.kernels.edge_softmax import ref as er  # noqa: E402
 from repro_torch.kernels.frontier import ops as fk  # noqa: E402
 from repro_torch.kernels.frontier import ref as fr  # noqa: E402
 from repro_torch.kernels.spmm import ops as sk  # noqa: E402
 from repro_torch.kernels.spmm import ref as sr  # noqa: E402
-from repro_torch.models.gnn import gcn_init  # noqa: E402
+from repro_torch.models.gnn import MODELS, gcn_init  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
-from repro_torch.runtime.engine import TrainEngine  # noqa: E402
+from repro_torch.runtime.engine import (TrainEngine, gnn_loss_fn,  # noqa: E402
+                                        seed_labels)
 
 
 @pytest.fixture
@@ -289,3 +292,97 @@ def test_train_step_cuda_matches_eager(cuda_device, sampler):
                                atol=1e-5)
     for (n, a), (_, b) in zip(mk.named_parameters(), me.named_parameters()):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=n)
+
+
+def _edge_layout(g, E, S, live_n, dev, masked_in_prefix=0.0):
+    """A dst-sorted prefix of ``live_n`` edges over ``S`` rows (some rows
+    empty, some with one edge), masked and -1 past it; optionally some
+    masked edges inside the prefix."""
+    dst = torch.sort(torch.randint(0, S, (E,), generator=g, device=dev,
+                                   dtype=torch.int32)).values
+    live = torch.arange(E, device=dev) < live_n
+    dst = torch.where(live, dst, -1)
+    mask = live & (torch.rand(E, generator=g, device=dev)
+                   >= masked_in_prefix)
+    return dst, mask, torch.tensor(live_n, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,S,H,live_frac,masked", [
+    (1, 1, 1, 1.0, 0.0), (5000, 300, 1, 0.9, 0.0), (5000, 4000, 8, 0.5, 0.3),
+    (50_000, 3000, 8, 0.2, 0.0), (4097, 100, 128, 1.0, 0.1),
+    (2000, 50, 3, 0.0, 0.0)])
+def test_edge_softmax_kernel_matches_plain(cuda_device, E, S, H, live_frac,
+                                           masked):
+    """B8 against its plain version to 1e-6: rows with one edge and with
+    none, one head and 128, masked edges inside the prefix, no live edge
+    at all, and a row spread of 200 in logits (a shared shift would
+    underflow the low rows to 0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(E + H)
+    dst, mask, live = _edge_layout(g, E, S, int(E * live_frac), cuda_device,
+                                   masked)
+    logits = torch.randn(E, H, generator=g, device=cuda_device) * 3
+    logits[::7] += 200.0
+    want = er.edge_softmax_ref(dst, mask, logits, S)
+    got = ek.edge_softmax_rows(dst, mask, logits, S, live)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.all(got[~mask] == 0)
+    sums = torch.zeros(S, H, device=cuda_device).index_add_(
+        0, dst[mask].long(), got[mask])
+    rows = torch.unique(dst[mask].long())
+    torch.testing.assert_close(sums[rows], torch.ones_like(sums[rows]),
+                               rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="128 heads"):
+        ek.edge_softmax_rows(dst, mask, torch.zeros(E, 129,
+                                                    device=cuda_device), S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 8, 47, 256])
+def test_scatter_rows_kernel_matches_plain(cuda_device, F):
+    """The per-edge scatter, dst-sorted and through a src_perm, against
+    its plain version and index_add_, to 1e-5."""
+    g = torch.Generator(device=cuda_device).manual_seed(F)
+    E, S, T = 20_000, 700, 3000
+    dst, mask, live = _edge_layout(g, E, S, 15_000, cuda_device)
+    src = torch.randint(-1, T, (E,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    perm = fr.compact_perm(src, mask, T)
+    vals = torch.randn(E, F, generator=g, device=cuda_device)
+    for index, p, rows in ((dst, None, S), (src, perm, T)):
+        want = sr.scatter_rows_ref(index, mask, vals, rows, p)
+        got = sk.scatter_rows(index, mask, vals, rows, perm=p, n_live=live)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        keep = mask & (index >= 0)
+        lib = torch.zeros(rows, F, device=cuda_device).index_add_(
+            0, index[keep].long(), vals[keep])
+        torch.testing.assert_close(got, lib, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["sage", "gatv2"])
+def test_model_step_is_repeatable_and_matches_eager(cuda_device, model):
+    """A SAGE or GATv2 train step on the kernels, three times from the same
+    parameters: gradients bit for bit (no atomics on the path), and to
+    1e-4 of the plain versions on the card."""
+    ds = paper_dataset("products", 0.004, seed=2)
+    smp = TS.from_dataset("labor-0", ds, batch_size=64, fanouts=(5, 5, 5))
+    seeds = pad_seeds(ds.train_idx[:64], 64, device="cuda")
+    init = MODELS[model][0]
+    grads = {}
+    for backend in ("cuda", "cuda", "cuda", "eager"):
+        eng = TrainEngine(smp, adam.AdamConfig(), device="cuda",
+                          backend=backend)
+        data = eng.make_data_from_dataset(ds)
+        net = init(TR.key(0), 100, 32, 47, 3, device="cuda")
+        blocks, feats = eng.sample_batch(data, seeds, TR.key(4))
+        loss, _ = gnn_loss_fn(net, blocks, feats,
+                              seed_labels(data.labels, seeds), backend)
+        grads.setdefault(backend, []).append(
+            torch.autograd.grad(loss, list(net.parameters())))
+    first = grads["cuda"][0]
+    for other in grads["cuda"][1:]:
+        for a, b in zip(first, other):
+            assert torch.equal(a, b)
+    for a, b in zip(first, grads["eager"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -12,8 +12,9 @@ backends:
     through the SDDMM with ``gather_dst``.
 
 rtol = atol = 1e-5: the sums run in another order than XLA's. Also the
-forward parity of ``gather_dst`` and ``sddmm(op="dot")``, and which
-backward pieces run for which input.
+forward parity of ``gather_dst``, ``sddmm(op="dot")`` and
+``sddmm(op="add")``, the gradient of ``gather_dst`` on both port
+backends, and which backward pieces run for which input.
 """
 import dataclasses
 
@@ -146,7 +147,22 @@ def test_gather_dst_and_sddmm_forward_parity(blocks, layer):
                                   op="dot", backend=jb))
         np.testing.assert_allclose(
             TO.sddmm(bt, ut, vt, op="dot").numpy(), want, **TOL)
-    with pytest.raises(NotImplementedError):
-        tcuda.gather_dst(bt, ut.clone().requires_grad_())
-    with pytest.raises(NotImplementedError):
-        TO.sddmm(bt, ut, vt, op="add")
+        # gather_dst with a gradient (its backward is the per-edge
+        # scatter) and sddmm(op="add"), on both port backends
+        g = rng.normal(size=(bt.edge_cap, F)).astype(np.float32)
+        want_g = np.asarray(jax.jit(jax.grad(
+            lambda u_, b: jnp.sum(O.gather_dst(b, u_, backend=jb) * g)))(
+                jnp.asarray(u), bj))
+        want = np.asarray(O.sddmm(bj, jnp.asarray(u), jnp.asarray(v),
+                                  op="add", backend=jb))
+        for gather in (tcuda.gather_dst,
+                       lambda b, x: TO.gather_dst(b, x, backend="eager")):
+            ug = ut.clone().requires_grad_()
+            out = gather(bt, ug)
+            torch.sum(out * torch.as_tensor(g)).backward()
+            np.testing.assert_array_equal(out.detach().numpy(),
+                                          np.asarray(O.gather_dst(
+                                              bj, jnp.asarray(u),
+                                              backend=jb)))
+            np.testing.assert_allclose(ug.grad.numpy(), want_g, **TOL)
+        np.testing.assert_allclose(TO.sddmm(bt, ut, vt).numpy(), want, **TOL)

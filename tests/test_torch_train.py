@@ -241,9 +241,11 @@ def test_cuda_is_the_default_and_unported_options_raise():
         with pytest.raises(RuntimeError):
             tlaunch.main(SURFACE)
     for kw in (dict(guard="rollback"), dict(pipeline="full"),
-               dict(mesh_devices=4), dict(ckpt_dir="ck"), dict(model="sage")):
+               dict(mesh_devices=4), dict(ckpt_dir="ck")):
         with pytest.raises(NotImplementedError):
             ttrain.GNNTrainConfig(**kw)
+    with pytest.raises(ValueError, match="unknown model"):
+        ttrain.GNNTrainConfig(model="gin")
     with pytest.raises(SystemExit, match="not ported"):
         tlaunch.main(["--workload", "lm", "--device", "cpu"])
 
@@ -256,6 +258,7 @@ def test_port_modules_load_neither_jax_nor_repro():
         "import repro_torch.kernels.frontier.ops, repro_torch.optim.adam\n"
         "import repro_torch.core.ladies, repro_torch.core.variance\n"
         "import repro_torch.core.samplers, repro_torch.core.cs_solve\n"
+        "import repro_torch.kernels.edge_softmax.ops, repro_torch.models.gnn\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
