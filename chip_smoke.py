@@ -9,7 +9,8 @@ error exits non-zero:
   1. device + build: the card's name and power limit (nvidia-smi), the
      seconds to compile every ``csrc/*.cu`` (one nvcc each, in parallel);
   2. kernels against plain: each CUDA kernel and its plain PyTorch
-     version on the same inputs on the card, plus adversarial cases.
+     version on the same inputs on the card, plus adversarial cases
+     (B9's in phase 6).
      The serving kernels (compact, hash_dedup, compact_perm, SpMM) get
      the real inputs of every layer of the first served request; the
      training kernels the real inputs of every layer of the first
@@ -72,12 +73,32 @@ error exits non-zero:
      sampled vertices per step and peak memory are printed per path;
   5. where the serving time goes: one warm request split into sample /
      gather / forward with CUDA events; then torch.profiler over a
-     window of warm requests, as for training.
+     window of warm requests, as for training;
+  6. LM serving, after the GNN phases' memory is freed: B9 (the flash
+     kernel) against its plain version on adversarial inputs (Sq 1, 130
+     and 1000, window 1 and window >= S, GQA ratios 1-8, every head
+     dimension, bf16, a custom scale, non-causal with a ragged Sk,
+     queries that see no key, strided and misaligned q; fp32 within 2e-5
+     x max(1, max|v|), bf16 within 3e-2); then each path of ``LM_PATHS``
+     through ``repro_torch.launch.serve``'s ``serve_lm`` at full width with
+     random weights (gemma2-2b: batch 1, a 32,768-token prompt, 32
+     tokens; stablelm-1.6b: batch 4, 4,096, 16), counts zeroed before
+     and read after (one B9 launch per layer: 26 and 24), B9 held
+     against its plain version and timed on the real q, k and v of the
+     first layers (the plain version in 1024-query chunks; SDPA as the
+     library call where it computes the same function), the prefill
+     recomputed on the plain path on the card (last logits and every
+     layer's K/V within 1e-4 relative L2), the decode teacher-forced
+     from both caches with the served tokens, both fp32 paths within
+     1e-4 of an fp64 recompute at a 2,048-token prompt, 3 decode steps
+     and one prefill under the profiler (B9's share of the device time,
+     idle shares).
 
 The line before the last is the ``kernels`` JSON object: per kernel,
 ``launches_by_path`` holds its count on each counted path (serve, serve
 full, serve gatv2, train <sampler> for each sampler, train sage, train
-gatv2, the weight-gradient path) and ``launches`` their sum.
+gatv2, the weight-gradient path, serve lm gemma2-2b, serve lm
+stablelm-1.6b) and ``launches`` their sum.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits 1 and prints no result.
 """
@@ -85,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -394,9 +416,10 @@ def adversarial(fk, fr, sk, sr):
 def counters():
     """The kernel wrappers' modules, each with its LAUNCHES counts."""
     from repro_torch.kernels.edge_softmax import ops as ek
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.frontier import ops as fk
     from repro_torch.kernels.spmm import ops as sk
-    return fk, sk, ek
+    return fk, sk, ek, fa
 
 
 def reset_launches():
@@ -1302,10 +1325,12 @@ def phase_profile(engine, data, model, seeds, key):
     emit({"phase": "profile", "window_requests": n_req, **window})
 
 
-def profile_window(run, n):
+def profile_window(run, n, share_of=None):
     """torch.profiler over ``run(0) .. run(n - 1)``: the window's
     elapsed time, the device's busy time and operations per call, its
-    idle share in that same window, and the top device kernels per call.
+    idle share in that same window, the top device kernels per call and,
+    with ``share_of``, the share of the busy time spent in kernels whose
+    name holds that string.
     Busy and elapsed come from the same window (one stream, so the sum
     of device events is the busy time). The profiler's host overhead
     slows the launches, so the idle share is an upper estimate of the
@@ -1332,7 +1357,11 @@ def profile_window(run, n):
         rows.append((us, evt.key, evt.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    return {"window_ms": window_ms,
+    out = {}
+    if share_of is not None:
+        hit = sum(r[0] for r in rows if share_of in r[1]) / 1e3
+        out[f"{share_of}_share_of_busy"] = hit / busy_ms if busy_ms else None
+    return {**out, "window_ms": window_ms,
             "device_busy_ms_per_call": busy_ms / n or None,
             "device_ops_per_call": sum(r[2] for r in rows) / n,
             "device_idle_share": (max(0.0, 1.0 - busy_ms / window_ms)
@@ -1340,6 +1369,297 @@ def profile_window(run, n):
             "top": [{"name": k[:80], "calls_per_call": c / n,
                      "device_ms_per_call": us / 1e3 / n}
                     for us, k, c in rows[:15]]}
+
+
+#: the LM serving paths: name -> (arch, decode batch, prompt, generated
+#: tokens). gemma2-2b at the repo's prefill_32k prompt (its batch of 32
+#: cut to 1 for one card) exercises every branch of B9: GQA 8/4, hd 256,
+#: the 4096 window and the softcap; stablelm-1.6b covers MHA at hd 64, no
+#: window, no softcap, and is the one where a PyTorch call
+#: (scaled_dot_product_attention) computes the kernel's function
+LM_PATHS = {"serve lm gemma2-2b": ("gemma2-2b", 1, 32768, 32),
+            "serve lm stablelm-1.6b": ("stablelm-1.6b", 4, 4096, 16)}
+#: the prompt of the fp64 yardstick (fp64 at 32k would run minutes)
+FP64_PROMPT = 2048
+#: timed launches of B9 at the real inputs (a gemma2 global layer's
+#: plain version takes ~0.3 s)
+LM_REPS = 3
+#: kernel vs plain path of the LM serving phases, per tensor (relative L2)
+LM_TOL = 1e-4
+
+
+def visible_pairs(Sq, Sk, causal, window):
+    """(query, key) pairs the attention mask lets through, per head."""
+    i = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(i, max=Sk - 1) if causal else torch.full_like(i, Sk - 1)
+    lo = (torch.clamp(i - window + 1, min=0) if window is not None
+          else torch.zeros_like(i))
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def attention_chunked(q, k, v, chunk=1024, **kw):
+    """The plain version one query chunk at a time: its (Sq, Sk) scores
+    of a 32k prompt would not fit the card."""
+    from repro_torch.kernels.flash_attention import ref as fr
+    return torch.cat([fr.attention_ref(q[:, lo:lo + chunk], k, v,
+                                       q_offset=lo, **kw)
+                      for lo in range(0, q.shape[1], chunk)], 1)
+
+
+def flash_check(name, q, k, v, kw, record=None, library=None):
+    """B9 against its plain version on one input: fp32 within 2e-5 x
+    max(1, max|v|) (the reference suite's bound on unit-scale inputs,
+    scaled to the values averaged), bf16 within 3e-2. With ``record``,
+    times the kernel, the plain version (chunked) and ``library`` (a
+    PyTorch call computing the same function, or None) and adds them."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    B, Sq, Hq, hd = q.shape
+    Sk = k.shape[1]
+    args = (kw["causal"], kw["window"], kw["softcap"], kw["scale"])
+    got = fa.flash_attention_fwd(q, k, v, *args)
+    want = attention_chunked(q, k, v, **kw)
+    torch.cuda.synchronize()
+    bf16 = q.dtype == torch.bfloat16
+    tol = 3e-2 if bf16 else 2e-5 * max(1.0, v.abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= tol:
+        fail(f"flash_attention {name}: kernel and plain version differ by "
+             f"{err} (tolerance {tol})")
+    out = {"phase": "kernels", "kernel": "flash_attention", "case": name,
+           "B": B, "Sq": Sq, "Sk": Sk, "Hq": Hq, "Hkv": k.shape[2],
+           "hd": hd, "dtype": str(q.dtype), **{n: kw[n] for n in kw},
+           "max_abs_err": err, "tolerance": tol}
+    if record is not None:
+        lib_ms = None
+        if library is not None:
+            lib = library()
+            torch.cuda.synchronize()
+            out["library_max_abs_err"] = (lib.float()
+                                          - want.float()).abs().max().item()
+            lib_ms = cuda_ms(library, LM_REPS)
+        del got, want
+        pairs = visible_pairs(Sq, Sk, kw["causal"], kw["window"])
+        esize = q.element_size()
+        t = record.add(
+            cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, *args), LM_REPS),
+            cuda_ms(lambda: attention_chunked(q, k, v, **kw), LM_REPS),
+            lib_ms, nbytes=esize * (2 * q.numel() + k.numel() + v.numel()),
+            flops=4.0 * B * Hq * hd * pairs, err=err)
+        out.update(visible_pairs=pairs, **t)
+    emit(out)
+    return err
+
+
+def adversarial_flash():
+    """B9's edge cases against its plain version: Sq 1, 130 and 1000,
+    window 1 and window >= S, no softcap, GQA ratios 1, 2 and 8, every
+    head dimension, bf16, a custom scale, non-causal with a ragged Sk,
+    queries that see no key, q read through its strides, q misaligned
+    (staged element by element)."""
+    g = torch.Generator(device=DEV).manual_seed(7)
+    # (B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap, scale, dtype)
+    cases = [
+        (2, 1, 1, 4, 4, 64, True, None, None, None, torch.float32),
+        (1, 130, 130, 8, 1, 128, True, None, 50.0, None, torch.float32),
+        (1, 1000, 1000, 4, 2, 256, True, 1, None, None, torch.float32),
+        (2, 1000, 1000, 2, 2, 80, True, 1000, None, None, torch.float32),
+        (1, 130, 130, 8, 4, 16, True, 7, 30.0, 0.3, torch.float32),
+        (1, 1000, 1000, 4, 2, 32, True, None, None, None, torch.bfloat16),
+        (1, 1000, 1000, 8, 4, 256, True, 64, 50.0, 256 ** -0.5,
+         torch.bfloat16),
+        (1, 130, 333, 4, 4, 64, False, None, None, None, torch.float32),
+        (1, 1, 1000, 2, 1, 64, True, None, None, None, torch.float32),
+        (2, 200, 50, 2, 1, 64, False, 20, None, None, torch.float32),
+    ]
+    worst = 0.0
+    for n, (B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap, scale,
+            dtype) in enumerate(cases):
+        for layout in ("contiguous", "strided q", "misaligned q"):
+            q = torch.randn(B, Sq, 2, Hq, hd, generator=g, device=DEV)
+            if layout == "strided q":     # a slice of a fused tensor
+                q = q[:, :, 1].to(dtype)
+            elif layout == "misaligned q":    # staged element by element
+                flat = torch.empty(B * Sq * Hq * hd + 1, dtype=dtype,
+                                   device=DEV)
+                q = flat[1:].view(B, Sq, Hq, hd).copy_(q[:, :, 0])
+            else:
+                q = q[:, :, 0].contiguous().to(dtype)
+            k = torch.randn(B, Sk, Hkv, hd, generator=g, device=DEV).to(dtype)
+            v = (torch.randn(B, Sk, Hkv, hd, generator=g, device=DEV)
+                 * 3).to(dtype)
+            kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+            worst = max(worst, flash_check(f"adversarial {n} {layout}", q, k,
+                                           v, kw))
+    emit({"phase": "kernels", "adversarial_flash_cases": 3 * len(cases),
+          "max_abs_err": worst, "ok": True})
+
+
+def rel_l2_or_fail(what, got, want, tol=LM_TOL):
+    e = rel_l2(got, want)
+    if not e <= tol:
+        fail(f"{what}: {e} relative L2 apart (tolerance {tol})")
+    return e
+
+
+def phase_lm(path, opts, records):
+    """A further path: LM serving through ``repro_torch.launch.serve``'s
+    ``serve_lm`` at full width (random weights from ``--seed``): counts
+    zeroed before, read after (one B9 launch per layer); B9 held against
+    its plain version on the real q, k and v of the first layers; the
+    prefill recomputed on the plain path on the card (last logits and
+    every layer's K/V), the decode teacher-forced from both caches with
+    the kernel path's tokens; both fp32 paths against fp64 at a
+    ``FP64_PROMPT`` prompt; one prefill under the profiler."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import stack
+
+    arch, batch, prompt, gen = LM_PATHS[path]
+    args = serve.parser().parse_args([
+        "--workload", "lm", "--device", DEV, "--arch", arch, "--batch",
+        str(batch), "--prompt-len", str(prompt), "--gen", str(gen),
+        "--seed", str(opts.seed)])
+    t0 = time.perf_counter()
+    cfg, params, prompts = built = serve.build_lm(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _tensors(params))
+    # warm-up outside the counts: cuBLAS's shapes, the allocator's pools
+    stack.prefill(params, prompts[:, :256], cfg)
+    torch.cuda.synchronize()
+
+    # the main path, counted; the first local and global layers' q, k, v
+    # kept for the kernel check
+    captured = []
+    orig = fa.flash_attention
+
+    def spy(q, k, v, *a):
+        if len(captured) < len(cfg.layer_pattern):
+            captured.append((q, k, v, a))
+        return orig(q, k, v, *a)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    fa.flash_attention = spy
+    try:
+        res = serve.serve_lm(args, built)
+    finally:
+        fa.flash_attention = orig
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"{path}: B9 launched {launches['flash_attention']} times for "
+             f"{cfg.num_layers} layers")
+    toks = res["tokens"]
+    if (toks.shape != (batch, gen) or not bool(torch.isfinite(
+            res["last_logits"]).all())
+            or not bool(((toks >= 0) & (toks < cfg.vocab)).all())):
+        fail(f"{path}: tokens {tuple(toks.shape)} or non-finite logits")
+    emit({"phase": path, "arch": arch, "params": n_params,
+          "init_seconds": init_s, "batch": batch, "prompt": prompt,
+          "gen": gen, "prefill_ms": res["prefill_s"] * 1e3,
+          "decode_ms_per_token": res["decode_s"] * 1e3 / max(gen - 1, 1),
+          "decode_tokens_per_s": batch * (gen - 1) / res["decode_s"],
+          "prefill_tokens_per_s": batch * prompt / res["prefill_s"],
+          "launches": launches, "peak_memory_gib": peak,
+          "sample": toks[0, :12].tolist()})
+
+    # B9 on the real inputs of the first layers (and SDPA where it
+    # computes the same function: no window, no softcap, MHA)
+    for i, (q, k, v, (causal, window, softcap, scale)) in enumerate(
+            captured):
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        library = None
+        if window is None and softcap is None and q.shape[2] == k.shape[2]:
+            def library(q=q, k=k, v=v, scale=scale):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, scale=scale).transpose(1, 2)
+        flash_check(f"{arch} layer {i} ({cfg.layer_pattern[i]})", q, k, v,
+                    kw, records["flash_attention"], library)
+    del captured, q, k, v
+    torch.cuda.empty_cache()
+
+    # the prefill on the plain path from the same weights
+    plain_logits, plain_cache = stack.prefill(params, prompts, cfg,
+                                              backend="eager")
+    torch.cuda.synchronize()
+    checks = {"last_logits_rel_l2": rel_l2_or_fail(
+        f"{path} last logits, kernel vs plain path", res["last_logits"],
+        plain_logits)}
+    kv = 0.0
+    for i, (kc, pc) in enumerate(zip(res["cache"], plain_cache)):
+        for n in ("k", "v"):
+            for r in range(cfg.repeats):
+                kv = max(kv, rel_l2_or_fail(
+                    f"{path} layer {r * len(cfg.layer_pattern) + i} {n}",
+                    kc[n][r, :, :prompt], pc[n][r]))
+    checks["cache_max_rel_l2"] = kv
+    # decode teacher-forced with the kernel path's tokens from both caches
+    plain_cache = stack.widen_cache(plain_cache, gen)
+    worst, flips = 0.0, 0
+    for j in range(gen - 1):
+        tok = toks[:, j:j + 1]
+        lk, _ = stack.decode_step(params, tok, res["cache"], prompt + j, cfg)
+        lp, _ = stack.decode_step(params, tok, plain_cache, prompt + j, cfg)
+        if not torch.equal(lk.argmax(-1).to(torch.int32), toks[:, j + 1]):
+            fail(f"{path}: decode step {j} does not repeat the served token")
+        worst = max(worst, rel_l2_or_fail(f"{path} decode step {j} logits",
+                                          lk, lp))
+        flips += int((lk.argmax(-1) != lp.argmax(-1)).sum())
+    checks.update(decode_logits_max_rel_l2=worst,
+                  decode_argmax_differences=flips)
+    decode_window = profile_window(lambda j: stack.decode_step(
+        params, toks[:, j:j + 1], res["cache"], prompt + j, cfg), 3)
+    del res, plain_cache, plain_logits, lk, lp
+    torch.cuda.empty_cache()
+
+    # both fp32 paths against fp64 at a shorter prompt
+    short = prompts[:, :FP64_PROMPT]
+    lk, _ = stack.prefill(params, short, cfg, backend="cuda")
+    lp, _ = stack.prefill(params, short, cfg, backend="eager")
+    p64 = _to_double(params)
+    l64, _ = stack.prefill(p64, short, cfg, backend="eager")
+    torch.cuda.synchronize()
+    del p64
+    torch.cuda.empty_cache()
+    checks["fp64"] = {
+        "prompt": FP64_PROMPT,
+        "kernel_rel_l2": rel_l2_or_fail(f"{path} fp64 check, kernel path",
+                                        lk, l64),
+        "plain_rel_l2": rel_l2_or_fail(f"{path} fp64 check, plain path",
+                                       lp, l64)}
+    emit({"phase": path, "recompute": "plain path on the card", **checks})
+
+    emit({"phase": path, "profile": "3 decode steps", **decode_window})
+    window = profile_window(lambda i: stack.prefill(params, prompts, cfg), 1,
+                            share_of="flash")
+    emit({"phase": path, "profile": "one prefill", **window})
+    del params, prompts, built
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def _to_double(tree):
+    if isinstance(tree, dict):
+        return {k: _to_double(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_double(v) for v in tree]
+    return tree.double()
 
 
 def main():
@@ -1509,13 +1829,28 @@ def main():
     # -- phase 4: train every path through the launcher's path ------------
     paths.update({f"train {k}": v for k, v in phase_train(ds, opts).items()})
     paths[WGRAD_PATH] = wgrad_launches
+
+    # -- phase 5: where the serving time goes -------------------------------
+    phase_profile(eng_k, data, model, seeds0, key0)
+
+    # -- phase 6: LM serving, with B9 ---------------------------------------
+    # the GNN phases' tensors go first (GATv2 peaked at 56 GiB)
+    del built, ds, engine, data, model, eng_k, eng_e, logits_k, logits_e
+    del blocks_k, blocks_e, flags_k, flags_e, seeds0, seeds_t
+    gc.collect()
+    torch.cuda.empty_cache()
+    records["flash_attention"] = Record(
+        "flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:30")
+    adversarial_flash()
+    for path in LM_PATHS:
+        paths[path] = phase_lm(path, opts, records)
+        gc.collect()
+        torch.cuda.empty_cache()
     for name, rec in records.items():
         by_path = {p: counts[name] for p, counts in paths.items()}
         rec.row["launches_by_path"] = by_path
         rec.row["launches"] = sum(by_path.values())
-
-    # -- phase 5: where the serving time goes -------------------------------
-    phase_profile(eng_k, data, model, seeds0, key0)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

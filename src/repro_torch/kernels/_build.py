@@ -27,10 +27,13 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-SOURCES = ("edge_softmax", "frontier", "search", "select", "spmm")
+SOURCES = ("edge_softmax", "flash_attention", "frontier", "search",
+           "select", "spmm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 #: C signatures: name -> (library, argtypes)
 SIGNATURES = {
     "frontier_compact": ("frontier", [_P, _I, _P, _I, _P, _P, _P, _P, _P]),
@@ -47,6 +50,8 @@ SIGNATURES = {
     "scatter_rows": ("spmm", [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P]),
     "gather_dst_rows": ("spmm", [_P, _P, _I, _P, _P, _I, _I, _P, _P]),
     "edge_softmax": ("edge_softmax", [_P, _P, _I, _P, _P, _I, _I, _P, _P]),
+    "flash_attention_fwd": ("flash_attention", [_P] * 4 + [_I] * 6
+                            + [_L] * 12 + [_I, _I, _L, _I, _F, _F, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

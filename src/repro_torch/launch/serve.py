@@ -1,5 +1,7 @@
-"""GNN serving on the card (twin of ``repro.launch.serve``, synchronous
-path): a stream of seed requests over the validation ids, each answered
+"""Serving on the card (twin of ``repro.launch.serve``).
+
+GNN node classification, the synchronous path: a stream of seed
+requests over the validation ids, each answered
 by one sample -> gather -> model forward through ``TrainEngine``, with
 the overflow-retry contract and the same JSON report as the reference's
 ``--driver off``:
@@ -14,10 +16,21 @@ aggregation. ``--device cuda`` (the default) runs the CUDA kernels and
 fails if there is no card; ``--device cpu`` runs the plain versions on
 the CPU. ``--model`` takes ``gcn`` (the default), ``sage`` or
 ``gatv2``; its weights come from the model's init at ``key(seed)``, the
-reference's initialisation (GATv2's ``attn`` to ~1e-7 relative, the
-rest bit for bit), and the sampled sets for a given ``--seed`` are the
-same. ``--driver async`` and ``--workload lm``
-are not ported yet.
+reference's initialisation bit for bit, and the sampled sets for a
+given ``--seed`` are the same. ``--driver async`` is not ported yet.
+
+LM serving (``--workload lm``): greedy decode of a batch of random
+prompts from a model with random weights, the reference's
+``serve_lm``, at the full width of ``--arch`` (or ``--reduce``d):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+      --arch gemma2-2b --batch 1 --prompt-len 32768 --gen 32
+
+The weights come from ``init_params(key(seed))`` and the prompts from
+``randint`` with the same key, as in the reference, both bit for bit;
+the prefill runs every layer's attention through the flash kernel (B9)
+on ``cuda``; the cache is widened by ``--gen`` after it. Prints the
+reference's two lines (``prefill ... tok/s``, ``sample: [...]``).
 """
 from __future__ import annotations
 
@@ -117,12 +130,74 @@ def serve_gnn_sync(args, built=None):
     return report
 
 
+def build_lm(args):
+    """Config, weights and prompts of one LM serving run: ``init_params``
+    and the prompts from the same key, as the reference does."""
+    from repro_torch import configs as cfgreg
+    from repro_torch.configs.reduce import reduce_cfg
+    from repro_torch.models.transformer import stack
+
+    cfg = cfgreg.get_config(args.arch, dtype="float32")
+    if args.reduce:
+        cfg = reduce_cfg(cfg)
+    key = rng_lib.key(args.seed)
+    params = stack.init_params(key, cfg, device=args.device)
+    prompts = rng_lib.randint(key, (args.batch, args.prompt_len), 0,
+                              cfg.vocab, device=args.device)
+    return cfg, params, prompts
+
+
+def serve_lm(args, built=None):
+    """Prefill the prompts, widen the cache by ``--gen``, decode ``--gen``
+    greedy tokens (the first from the prefill's logits). Prints the
+    reference's two lines and returns the run's numbers and tensors:
+    the tokens (B, gen), the prefill's last logits, the final cache, and
+    the host-clock seconds of the prefill and of the decode loop (each
+    ending in a synchronise on the card)."""
+    from repro_torch.models.transformer import lm, stack
+
+    cfg, params, prompts = built or build_lm(args)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    sync = (torch.cuda.synchronize if prompts.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    last_logits, cache = stack.prefill(params, prompts, cfg)
+    cache = stack.widen_cache(cache, G)
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    serve_step = lm.make_serve_step(cfg)
+    tok = torch.argmax(last_logits, dim=-1).to(torch.int32)[:, None]
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(G - 1):
+        nxt, cache = serve_step(params, cache, tok, P + i)
+        tok = nxt[:, None]
+        out.append(tok)
+    toks = torch.cat(out, 1)
+    sync()
+    dt = time.perf_counter() - t0
+    print(f"prefill {B}x{P} in {t_prefill:.2f}s; "
+          f"decoded {B}x{G} in {dt:.2f}s "
+          f"({B * (G - 1) / max(dt, 1e-9):.1f} tok/s)")
+    print("sample:", toks[0, :12].tolist())
+    return {"tokens": toks, "last_logits": last_logits, "cache": cache,
+            "prefill_s": t_prefill, "decode_s": dt}
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", choices=["lm", "gnn"], default="gnn")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    ap.add_argument("--batch", type=int, default=1024,
-                    help="the seed-buffer shape of one dispatch")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="gnn: the seed-buffer shape of one dispatch "
+                         "(default 1024); lm: the decode batch (default 4)")
+    # lm
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--reduce", action="store_true")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--dataset", default="products")
     ap.add_argument("--scale", type=float, default=0.01)
     ap.add_argument("--sampler", default="full",
@@ -144,9 +219,9 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.workload != "gnn":
-        sys.exit("repro_torch.launch.serve: --workload lm is not ported yet")
-    if args.driver != "off":
+    if args.batch is None:
+        args.batch = 4 if args.workload == "lm" else 1024
+    if args.workload == "gnn" and args.driver != "off":
         sys.exit("repro_torch.launch.serve: --driver async is not ported "
                  "yet; use --driver off")
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -155,6 +230,8 @@ def main(argv=None):
     # fp32 products stay fp32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.workload == "lm":
+        return serve_lm(args)
     return serve_gnn_sync(args)
 
 

@@ -223,8 +223,7 @@ def gatv2_init(key: rng_lib.Key, in_dim: int, hidden: int, out_dim: int,
                num_layers: int = 3, heads: int = 8, device="cuda") -> GATv2:
     """The reference's ``gatv2_init``: per layer ``split(fold_in(key, l),
     4)``, Glorot-uniform ``ws``/``wt`` bit for bit, ``attn`` = 0.1 x
-    ``normal`` (within ~1e-7 relative of JAX's draws, see
-    :func:`rng_lib.normal`), zero bias."""
+    ``normal`` (bit for bit too, :func:`rng_lib.normal`), zero bias."""
     model = GATv2(in_dim, hidden, out_dim, num_layers, heads, device=device)
     with torch.no_grad():
         for i, layer in enumerate(model.layers):

@@ -4,6 +4,8 @@ marked ``cuda`` and skips without a card; run them there with
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,6 +17,8 @@ from repro_torch.core.interface import INT_FIELDS, pad_seeds  # noqa: E402
 from repro_torch.graph.generators import paper_dataset  # noqa: E402
 from repro_torch.kernels.edge_softmax import ops as ek  # noqa: E402
 from repro_torch.kernels.edge_softmax import ref as er  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fr_attn  # noqa: E402
 from repro_torch.kernels.frontier import ops as fk  # noqa: E402
 from repro_torch.kernels.frontier import ref as fr  # noqa: E402
 from repro_torch.kernels.spmm import ops as sk  # noqa: E402
@@ -386,3 +390,107 @@ def test_model_step_is_repeatable_and_matches_eager(cuda_device, model):
             assert torch.equal(a, b)
     for a, b in zip(first, grads["eager"][0]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# -- B9: the flash-attention kernel ------------------------------------------
+
+#: (B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap, scale, dtype)
+FLASH_CASES = [
+    (2, 1, 1, 4, 4, 64, True, None, None, None, torch.float32),
+    (1, 130, 130, 8, 1, 128, True, None, 50.0, None, torch.float32),
+    (1, 1000, 1000, 4, 2, 256, True, 1, None, None, torch.float32),
+    (2, 1000, 1000, 2, 2, 80, True, 1000, None, None, torch.float32),
+    (1, 130, 130, 8, 4, 16, True, 7, 30.0, 0.3, torch.float32),
+    (1, 300, 300, 4, 2, 32, True, None, None, None, torch.bfloat16),
+    (1, 257, 257, 8, 4, 256, True, 64, 50.0, 256 ** -0.5, torch.bfloat16),
+    (1, 130, 333, 4, 4, 64, False, None, None, None, torch.float32),
+    (1, 1, 1000, 2, 1, 64, True, None, None, None, torch.float32),
+    (2, 200, 50, 2, 1, 64, False, 20, None, None, torch.float32),
+]
+
+
+def _flash_inputs(case, dev, layout="contiguous"):
+    B, Sq, Sk, Hq, Hkv, hd, *_, dtype = case
+    g = torch.Generator(device=dev).manual_seed(Sq * 7 + hd)
+    if layout == "strided":   # q as a slice of a fused (B, S, 2, Hq, hd)
+        q = torch.randn(B, Sq, 2, Hq, hd, generator=g, device=dev)[:, :, 1]
+    else:
+        q = torch.randn(B, Sq, Hq, hd, generator=g, device=dev)
+    if layout == "misaligned":  # one element off: staged element-wise
+        flat = torch.empty(q.numel() + 1, dtype=dtype, device=dev)
+        q = flat[1:].view(q.shape).copy_(q)
+    k = torch.randn(B, Sk, Hkv, hd, generator=g, device=dev)
+    v = torch.randn(B, Sk, Hkv, hd, generator=g, device=dev) * 3
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda_device, case):
+    """Every head dimension, GQA ratios 1-8, window 1 and window >= S, the
+    softcap, a custom scale, bf16, one query, a non-causal ragged Sk and
+    queries that see no key (the mean of v), q through its strides and
+    one element off its alignment: fp32
+    within 2e-5 x max(1, max|v|), bf16 within 3e-2; one launch each."""
+    *_, causal, window, softcap, scale, dtype = case
+    for layout in ("contiguous", "strided", "misaligned"):
+        q, k, v = _flash_inputs(case, cuda_device, layout)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        want = fr_attn.attention_ref(q, k, v, **kw)
+        fa.reset_launches()
+        got = fa.flash_attention(q, k, v, causal, window, softcap, scale)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention"] == 1
+        assert got.dtype == dtype and got.shape == q.shape
+        atol = (3e-2 if dtype == torch.bfloat16
+                else 2e-5 * max(1.0, v.abs().max().item()))
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_gradient_matches_plain(cuda_device):
+    """The autograd Function's backward is the plain version's."""
+    case = (2, 150, 150, 4, 2, 64, True, 40, 30.0, None, torch.float32)
+    q, k, v = _flash_inputs(case, cuda_device)
+    g = torch.randn_like(q)
+    grads = []
+    for fn in (lambda a, b, c: fa.flash_attention(a, b, c, True, 40, 30.0),
+               lambda a, b, c: fr_attn.attention_ref(a, b, c, window=40,
+                                                     softcap=30.0)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_prefill_runs_the_kernel_per_layer(cuda_device, monkeypatch):
+    """A reduced gemma2 prefill on the ``cuda`` backend launches the
+    kernel once per layer and never the plain version on a CUDA tensor;
+    its logits and caches match the ``eager`` backend's on the card."""
+    from repro_torch import configs
+    from repro_torch.configs.reduce import reduce_cfg
+    from repro_torch.models.transformer import stack
+    cfg = dataclasses.replace(reduce_cfg(configs.get_config("gemma2-2b")),
+                              num_layers=4)
+    params = stack.init_params(TR.key(0), cfg, device="cuda")
+    tokens = TR.randint(TR.key(0), (2, 200), 0, cfg.vocab, device="cuda")
+    want_logits, want_cache = stack.prefill(params, tokens, cfg,
+                                            backend="eager")
+    plain = fr_attn.attention_ref
+
+    def no_plain_on_the_card(q, *a, **kw):
+        assert q.device.type != "cuda", "plain attention ran on the card"
+        return plain(q, *a, **kw)
+
+    monkeypatch.setattr(fr_attn, "attention_ref", no_plain_on_the_card)
+    fa.reset_launches()
+    logits, cache = stack.prefill(params, tokens, cfg)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(logits, want_logits, rtol=1e-4, atol=1e-5)
+    for got, want in zip(cache, want_cache):
+        for n in ("k", "v"):
+            torch.testing.assert_close(got[n], want[n], rtol=1e-4, atol=1e-5)

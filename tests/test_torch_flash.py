@@ -1,0 +1,190 @@
+"""B9's plain version and the model's plain attention in repro_torch
+against repro on the CPU (inputs from numpy with a seed):
+
+  * ``kernels/flash_attention/ref.py::attention_ref`` against repro's
+    oracle on the five shapes of ``tests/test_kernels_flash.py``, a
+    custom scale, bf16, non-causal calls (ragged Sk, and queries that see
+    no key), atol 2e-5 (the reference suite's fp32 bound; scores summed
+    in another order);
+  * ``layers._attend_flags`` against repro's with a small ``chunk_q``, so
+    that its q-chunked branch runs;
+  * the wrapper: on the CPU it is the plain version; its autograd
+    Function (the kernel forward, the plain version's gradient) driven on
+    CPU tensors with the kernel launch replaced by the plain version,
+    against ``jax.vjp`` of the oracle; its argument checks.
+
+The kernel itself runs only on the card (``tests/test_torch_cuda.py``).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and torch's
+# OpenMP threads spinning against them slow every worker several-fold
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.configs.reduce import reduce_cfg as jreduce  # noqa: E402
+from repro.kernels.flash_attention import ref as jflash_ref  # noqa: E402
+from repro.models.transformer import layers as JL  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.configs.reduce import reduce_cfg as treduce  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fo  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fr  # noqa: E402
+from repro_torch.models.transformer import layers as TL  # noqa: E402
+
+# the shapes of repro's own kernel suite (tests/test_kernels_flash.py)
+CASES = [
+    dict(B=2, S=128, Hq=4, Hkv=2, hd=64, window=None, softcap=None),
+    dict(B=1, S=256, Hq=4, Hkv=4, hd=32, window=96, softcap=None),
+    dict(B=1, S=130, Hq=2, Hkv=1, hd=64, window=None, softcap=50.0),
+    dict(B=2, S=256, Hq=8, Hkv=2, hd=16, window=64, softcap=30.0),
+    dict(B=1, S=64, Hq=1, Hkv=1, hd=128, window=None, softcap=None),
+]
+
+
+def _mk(B, Sq, Hq, Hkv, hd, Sk=None, seed=0):
+    rng = np.random.default_rng(seed)
+    Sk = Sq if Sk is None else Sk
+    return (rng.normal(size=(B, Sq, Hq, hd)).astype(np.float32),
+            rng.normal(size=(B, Sk, Hkv, hd)).astype(np.float32),
+            rng.normal(size=(B, Sk, Hkv, hd)).astype(np.float32))
+
+
+def _both(arrays, dtype=np.float32, **kw):
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    want = jflash_ref.attention_ref(*(jnp.asarray(a, jd) for a in arrays),
+                                    **kw)
+    got = fr.attention_ref(*(torch.from_numpy(a).to(td) for a in arrays),
+                           **kw)
+    return (got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_attention_ref_matches_repro(case):
+    arrays = _mk(case["B"], case["S"], case["Hq"], case["Hkv"], case["hd"],
+                 seed=case["S"])
+    kw = dict(causal=True, window=case["window"], softcap=case["softcap"])
+    got, want = _both(arrays, **kw)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+    # on CPU tensors the wrapper is the plain version
+    cpu = fo.flash_attention(*(torch.from_numpy(a) for a in arrays), True,
+                             case["window"], case["softcap"], None)
+    np.testing.assert_array_equal(cpu.numpy(), got)
+
+
+@pytest.mark.parametrize("name,Sq,Sk,kw", [
+    ("custom scale", 96, 96, dict(causal=True, window=17, softcap=20.0,
+                                  scale=0.3)),
+    ("non-causal", 130, 130, dict(causal=False)),
+    ("non-causal, ragged Sk", 70, 333, dict(causal=False, softcap=50.0)),
+    ("queries that see no key", 90, 20, dict(causal=False, window=8)),
+    ("one query", 1, 200, dict(causal=True, window=1)),
+])
+def test_attention_ref_options_match_repro(name, Sq, Sk, kw):
+    got, want = _both(_mk(2, Sq, 4, 2, 32, Sk=Sk, seed=Sq + Sk), **kw)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+def test_attention_ref_bf16_matches_repro():
+    """repro's ``test_vs_oracle_bf16`` shape: both cast bf16 inputs to
+    fp32 and round the output to bf16 once."""
+    c = CASES[0]
+    got, want = _both(_mk(c["B"], c["S"], c["Hq"], c["Hkv"], c["hd"],
+                          seed=1), dtype="bf16", causal=True)
+    np.testing.assert_allclose(got, want, atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("arch,kind", [("gemma2-2b", "attn_local"),
+                                       ("gemma2-2b", "attn_global"),
+                                       ("stablelm-1.6b", "attn")])
+def test_attend_flags_chunked_matches_repro(arch, kind):
+    """The q-chunked branch (chunk 16 of S = 48, the reduced gemma2's
+    window 16) and the direct one, against repro's, and against each
+    other."""
+    jcfg = jreduce(jconfigs.get_config(arch, dtype="float32"))
+    tcfg = treduce(tconfigs.get_config(arch, dtype="float32"))
+    window = tcfg.window if kind == "attn_local" else None
+    q, k, v = _mk(2, 48, tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim,
+                  seed=5)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    for chunk in (16, 1024):
+        want = JL._attend_flags(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), jcfg, causal=True,
+                                window=window, chunk_q=chunk)
+        got = TL._attend_flags(tq, tk, tv, tcfg, causal=True, window=window,
+                               chunk_q=chunk)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   rtol=0)
+    # the model's plain attention is the kernel's plain version
+    direct = fr.attention_ref(tq, tk, tv, causal=True, window=window,
+                              softcap=tcfg.attn_softcap,
+                              scale=TL._scale(tcfg, tcfg.head_dim))
+    np.testing.assert_allclose(got.numpy(), direct.numpy(), atol=2e-6,
+                               rtol=0)
+
+
+def test_autograd_function_matches_jax_vjp(monkeypatch):
+    """The cuda path's autograd Function on CPU tensors, its launch
+    replaced by the plain version (counted): the forward and the
+    gradients of q, k and v against ``jax.vjp`` of repro's oracle."""
+    calls = []
+
+    def fake_fwd(q, k, v, causal, window, softcap, scale):
+        calls.append(q.shape)
+        return fr.attention_ref(q, k, v, causal=causal, window=window,
+                                softcap=softcap, scale=scale)
+
+    monkeypatch.setattr(fo, "flash_attention_fwd", fake_fwd)
+    q, k, v = _mk(2, 40, 4, 2, 16, seed=9)
+    g = np.random.default_rng(10).normal(size=q.shape).astype(np.float32)
+    kw = dict(causal=True, window=11, softcap=30.0, scale=None)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = fo._FlashAttention.apply(tq, tk, tv, *kw.values())
+    out.backward(torch.from_numpy(g))
+    want, vjp = jax.vjp(
+        lambda a, b, c: jflash_ref.attention_ref(a, b, c, **kw),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    assert len(calls) == 1
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               atol=2e-5, rtol=0)
+    for got, ref_g in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref_g),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(a) for a in _mk(1, 8, 4, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        fo.flash_attention_fwd(q, k, v)
+    with pytest.raises(TypeError, match="dtype"):
+        fo._checked(q, k.double(), v)
+    with pytest.raises(ValueError, match="multiple"):
+        fo._checked(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="head dimension"):
+        fo._checked(q[..., :12], k[..., :12], v[..., :12])
+    with pytest.raises(ValueError, match="contiguous"):
+        fo._checked(q.transpose(2, 3), k, v)
+    # strided views (a slice of a fused qkv tensor) are taken as they are
+    qkv = torch.zeros(1, 8, 3, 4, 16)
+    assert fo._checked(qkv[:, :, 0], k, v) == (1, 8, 8, 4, 2, 16)
+
+
+def test_configs_match_repro():
+    """get_config, reduce_cfg and cells_for: every field of the five
+    archs equal to repro's."""
+    assert sorted(tconfigs.ARCHS) == sorted(jconfigs.ARCHS)
+    for arch in tconfigs.ARCHS:
+        t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j), arch
+        assert (dataclasses.asdict(treduce(t))
+                == dataclasses.asdict(jreduce(j))), arch
+        assert tconfigs.cells_for(arch) == jconfigs.cells_for(arch)
+    with pytest.raises(KeyError):
+        tconfigs.get_config("labor-gcn")

@@ -11,10 +11,9 @@
     ``edge_softmax`` the segment-softmax Jacobian). rtol = atol = 1e-5:
     the sums run in another order than XLA's. Plus the extreme logit
     spread of repro's own softmax regression test;
-  * ``rng.normal`` against ``jax.random.normal`` to 1e-6 relative (not
-    bit for bit: XLA's ``log1p`` differs in the last bit now and then;
-    the share of draws that differ is printed);
-  * ``sage_init`` bit for bit, ``gatv2_init`` to 1e-6 relative;
+  * ``rng.normal`` against ``jax.random.normal`` bit for bit (the port
+    evaluates XLA's own CPU ``log1p`` and ``erf_inv``);
+  * ``sage_init`` and ``gatv2_init`` bit for bit;
     ``params_from_jax`` for both, logits to 1e-5 and each parameter
     gradient to rtol 1e-4 plus atol 1e-5 of the tensor's largest entry
     (sums over hundreds of edges in another order; entries near 0 come
@@ -220,9 +219,7 @@ def test_normal_matches_jax(seed, shape):
     want = np.asarray(jax.random.normal(jax.random.key(seed), shape))
     got = TR.normal(TR.key(seed), shape).numpy()
     assert got.dtype == np.float32 and got.shape == want.shape
-    print(f"normal {shape}: {np.mean(got != want):.4%} of the draws differ "
-          "from jax.random.normal")
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def _jax_params(name, heads=8):
@@ -246,11 +243,9 @@ def test_gatv2_init_matches_jax(heads):
     got = tgnn.gatv2_init(TR.key(3), 100, HIDDEN, 47, 2, heads=heads,
                           device="cpu")
     for p, layer in zip(want["layers"], got.layers):
-        for k in ("ws", "wt", "b"):
+        for k in ("ws", "wt", "attn", "b"):
             np.testing.assert_array_equal(getattr(layer, k).detach().numpy(),
                                           np.asarray(p[k]))
-        np.testing.assert_allclose(layer.attn.detach().numpy(),
-                                   np.asarray(p["attn"]), rtol=1e-6, atol=0)
 
 
 def _jax_logits_and_grads(name, params, bj, feats, c, backend):
