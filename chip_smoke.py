@@ -7,7 +7,9 @@ Phases, each printing JSON lines; any mismatch, build failure or launch
 error exits non-zero:
 
   1. device + build: the card's name and power limit (nvidia-smi), the
-     seconds to compile every ``csrc/*.cu`` (one nvcc each, in parallel);
+     seconds to compile every ``csrc/*.cu`` (one nvcc each, in parallel),
+     each kernel's registers and spills, and ``cuobjdump -sass`` of B9's
+     library, which must hold TF32 HMMA (tensor-core) instructions;
   2. kernels against plain: each CUDA kernel and its plain PyTorch
      version on the same inputs on the card, plus adversarial cases
      (B9's in phase 6).
@@ -28,7 +30,9 @@ error exits non-zero:
      over 3.35 TB/s or flops over 67 TFLOP/s fp32, whichever is larger,
      counting what these inputs need) and one PyTorch library call
      computing the same function, where there is one (none computes a
-     segment softmax);
+     segment softmax). Compact against ``torch.nonzero`` and B7's search
+     against ``torch.searchsorted`` are then timed again on the same
+     inputs, ``TRIAL_ROUNDS`` rounds in turn, all rounds printed;
   3. serve: ``--requests`` requests through ``repro_torch.launch.serve``'s
      synchronous path on products at ``--scale`` (0.25: 612,257
      vertices) with the paper's widths (100 features, hidden 256, 47
@@ -86,7 +90,9 @@ error exits non-zero:
      and read after (one B9 launch per layer: 26 and 24), B9 held
      against its plain version and timed on the real q, k and v of the
      first layers (the plain version in 1024-query chunks; SDPA as the
-     library call where it computes the same function), the prefill
+     library call where it computes the same function), beside two
+     bounds (fp32 FMA at 67 TFLOP/s, 3xTF32 at 165; ``bound_ms`` is the
+     latter, the rate B9's tensor-core products run at), the prefill
      recomputed on the plain path on the card (last logits and every
      layer's K/V within 1e-4 relative L2), the decode teacher-forced
      from both caches with the served tokens, both fp32 paths within
@@ -122,6 +128,11 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+# 3xTF32 on the tensor cores: the dense TF32 rate (495 TFLOP/s) over the
+# three products that keep an fp32 product near fp32 (B9)
+TF32X3_FLOP_PER_S = 495e12 / 3
+#: rounds of the compact-vs-nonzero and B7-vs-searchsorted timings
+TRIAL_ROUNDS = 3
 INT_MAX = 2**31 - 1
 DEV = "cuda"
 WGRAD_PATH = "aggregate backward, weights requiring a gradient"
@@ -130,6 +141,22 @@ WGRAD_PATH = "aggregate backward, weights requiring a gradient"
 # over 13.8 M edges, and take ~21 ms per request, so the paper's depth fits
 # the time limit with room to spare.
 FULL_DEPTH = 3
+
+
+def tensor_core_sass(build):
+    """B9 runs on the tensor cores: ``cuobjdump -sass`` of its library
+    holds HMMA instructions of the TF32 kind (fails otherwise)."""
+    lib = build._target("flash_attention")
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    hmma = [ln.strip() for ln in sass.stdout.splitlines() if "HMMA" in ln]
+    tf32 = [ln for ln in hmma if "TF32" in ln]
+    if sass.returncode != 0 or not tf32:
+        fail(f"cuobjdump -sass of {lib.name}: {len(hmma)} HMMA lines, "
+             f"{len(tf32)} of the TF32 kind ({sass.stderr.strip()[:200]})")
+    return {"hmma_lines": len(hmma), "tf32_hmma_lines": len(tf32),
+            "first": tf32[0]}
 
 
 def emit(obj):
@@ -168,14 +195,19 @@ def same(name, a, b):
 
 
 class Record:
-    """Per-kernel sums over the calls of one request."""
+    """Per-kernel sums over the calls of one request. ``flop_rate``: the
+    card's peak for the kernel's operations (fp32 FMA, or 3xTF32 on the
+    tensor cores, where the row also carries both bounds)."""
 
-    def __init__(self, name, route, source, replaces):
+    def __init__(self, name, route, source, replaces,
+                 flop_rate=FP32_FLOP_PER_S):
         self.row = dict(name=name, route=route, source=source,
                         replaces=replaces, launches=0,
                         launches_by_path={}, max_abs_err=0.0,
                         ms=0.0, plain_ms=0.0, bound_ms=0.0,
                         bound_by="bytes", library_ms=0.0)
+        self.flop_rate = flop_rate
+        self.flops = 0.0
         self.flop_bound = 0.0
         self.byte_bound = 0.0
 
@@ -192,19 +224,30 @@ class Record:
             r["library_ms"] += library_ms
         r["max_abs_err"] = max(r["max_abs_err"], float(err))
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flop_ms = flops / FP32_FLOP_PER_S * 1e3
+        flop_ms = flops / self.flop_rate * 1e3
         self.byte_bound += byte_ms
         self.flop_bound += flop_ms
+        self.flops += flops
         r["bound_ms"] = max(self.byte_bound, self.flop_bound)
         r["bound_by"] = ("bytes" if self.byte_bound >= self.flop_bound
                          else "operations")
-        return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms=max(byte_ms, flop_ms))
+        out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(byte_ms, flop_ms))
+        if self.flop_rate != FP32_FLOP_PER_S:
+            both = {"bound_ms_fp32_fma": (self.flops / FP32_FLOP_PER_S * 1e3,
+                                          flops / FP32_FLOP_PER_S * 1e3),
+                    "bound_ms_3xtf32": (self.flops / TF32X3_FLOP_PER_S * 1e3,
+                                        flops / TF32X3_FLOP_PER_S * 1e3)}
+            for k, (total, call) in both.items():
+                r[k] = max(self.byte_bound, total)
+                out[k] = max(byte_ms, call)
+        return out
 
 
-def phase_kernels(engine, data, seeds, key, reps, records):
+def phase_kernels(engine, data, seeds, key, reps, records, trials):
     """Phase 2: every kernel against its plain version at the inputs of
-    each layer of one request, then adversarial inputs."""
+    each layer of one request, then adversarial inputs. Appends each
+    compact call's (kernel, library) pair to ``trials``."""
     from repro_torch.core.interface import build_block
     from repro_torch.core.labor import layer_inclusion
     from repro_torch.kernels.frontier import ops as fk
@@ -235,11 +278,14 @@ def phase_kernels(engine, data, seeds, key, reps, records):
             torch.cuda.synchronize()
             same(f"compact layer {layer} cap {cap}", got, want)
             n = flags.shape[0] if live is None else int(live)
+            pair = (lambda flags=flags, cap=cap, live=live:
+                    fk.compact(flags, cap, live),
+                    lambda flags=flags: torch.nonzero(flags))
+            trials["compact"].append(pair)
             t = records["compact"].add(
-                cuda_ms(lambda: fk.compact(flags, cap, live), reps),
+                cuda_ms(pair[0], reps),
                 cuda_ms(lambda: fr.compact(flags, cap), reps),
-                cuda_ms(lambda: torch.nonzero(flags), reps),
-                nbytes=n + cap * 5 + 4)
+                cuda_ms(pair[1], reps), nbytes=n + cap * 5 + 4)
             emit({"phase": "kernels", "kernel": "compact", "layer": layer,
                   "E": flags.shape[0], "cap": cap, "live": n, **t})
 
@@ -413,6 +459,22 @@ def adversarial(fk, fr, sk, sr):
     emit({"phase": "kernels", "adversarial_cases": cases, "ok": True})
 
 
+def phase_trials(trials, reps):
+    """Compact against ``torch.nonzero`` and B7's search against
+    ``torch.searchsorted`` on the same real inputs, ``TRIAL_ROUNDS``
+    rounds in turn (kernel, library) in one run: each round's time is the
+    sum over the calls of phase 2, ``reps`` launches each."""
+    for name, pairs in trials.items():
+        kernel_ms, library_ms = [], []
+        for _ in range(TRIAL_ROUNDS):
+            kernel_ms.append(sum(cuda_ms(k, reps) for k, _ in pairs))
+            library_ms.append(sum(cuda_ms(lib, reps) for _, lib in pairs))
+        emit({"phase": "kernels", "trial": name, "calls": len(pairs),
+              "kernel_ms": kernel_ms, "library_ms": library_ms,
+              "kernel_faster_in": sum(a < b for a, b in zip(kernel_ms,
+                                                            library_ms))})
+
+
 def counters():
     """The kernel wrappers' modules, each with its LAUNCHES counts."""
     from repro_torch.kernels.edge_softmax import ops as ek
@@ -476,7 +538,7 @@ def library_select(keys, slot, mask, seg_start, take):
         0, order, inc)
 
 
-def phase_train_kernels(samplers_, data, seeds, key, reps, records):
+def phase_train_kernels(samplers_, data, seeds, key, reps, records, trials):
     """Phase 2, training half: segment_select on the NS batch's real
     inputs, masked_cdf_draw's search on the LADIES batch's CDFs, the
     transposed SpMM and the row gather on the LABOR-0 batch's blocks,
@@ -540,10 +602,12 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records):
         # level of the binary search (ceil(log2(C + 1)) levels), at most
         # the whole CDF
         probes = min(C, n * C.bit_length())
+        pair = (lambda cdf=cdf, u=u: fk.cdf_search(cdf, u), library)
+        trials["masked_cdf_draw"].append(pair)
         t = records["masked_cdf_draw"].add(
-            cuda_ms(lambda: fk.cdf_search(cdf, u), reps),
+            cuda_ms(pair[0], reps),
             cuda_ms(lambda: fr.cdf_search(cdf, u), reps),
-            cuda_ms(library, reps), nbytes=8 * n + 4 * probes)
+            cuda_ms(pair[1], reps), nbytes=8 * n + 4 * probes)
         emit({"phase": "kernels", "kernel": "masked_cdf_draw",
               "layer": layer, "C": C, "n": n,
               "valid": int(valid.sum()), **t})
@@ -824,9 +888,18 @@ def phase_gatv2_kernels(engine, data, seeds, key, reps, records, n_cls,
                 cuda_ms(library, reps),
                 nbytes=n * F * 4 + n * (9 if perm is not None else 5)
                 + rows * F * 4, flops=float(n * F), err=err)
+            # the sweep's keys: the longest row (one warp's sequential
+            # sum) and the widest jump between neighbours (rows the
+            # offsets pass fills)
+            keys = (index if perm is None else index[perm.long()])[:n]
+            gap = int((keys[1:] - keys[:-1]).max()) if n > 1 else 0
+            longest = int(torch.bincount(keys[keys >= 0].long()).max()
+                          ) if n else 0
             emit({"phase": "kernels", "kernel": "scatter_rows", "form": form,
                   "layer": layer, "E": E, "F": F, "rows": rows, "live": n,
+                  "longest_row": longest, "widest_key_gap": gap,
                   "max_abs_err": err, **t})
+            del keys
             del got, want, abs_sum, idx, v
         del vals
     E = blocks[-1].edge_cap
@@ -1699,8 +1772,10 @@ def main():
     for name in _build.SOURCES:
         _build.library(name)
     emit({"phase": "build", "seconds": build_s, "card": card,
-          "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln]
-                    for k, v in _build.BUILD_LOG.items()}})
+          "ptxas": {k: [ln.strip() for ln in v.splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for k, v in _build.BUILD_LOG.items()},
+          "flash_attention_sass": tensor_core_sass(_build)})
 
     args = serve.parser().parse_args([
         "--device", DEV, "--dataset", "products",
@@ -1758,7 +1833,8 @@ def main():
             "edge_softmax", "cuda", "src/repro_torch/csrc/edge_softmax.cu",
             "src/repro/kernels/edge_softmax/edge_softmax.py:42"),
     }
-    phase_kernels(engine, data, seeds0, key0, opts.reps, records)
+    trials = {"compact": [], "masked_cdf_draw": []}
+    phase_kernels(engine, data, seeds0, key0, opts.reps, records, trials)
 
     # the first training batch of the launcher's run, for NS, LADIES and
     # LABOR-0 (the engine)
@@ -1774,7 +1850,9 @@ def main():
                           device=DEV).at(0)
     key_t = rng_lib.fold_in(rng_lib.key(opts.seed + 1), 0)
     wgrad_launches = phase_train_kernels(samplers_, data, seeds_t, key_t,
-                                         opts.reps, records)
+                                         opts.reps, records, trials)
+    phase_trials(trials, opts.reps)
+    del trials
     n_cls = int(ds.labels.max()) + 1
     phase_gatv2_kernels(samplers_["engine"], data, seeds_t, key_t, opts.reps,
                         records, n_cls, opts.seed)
@@ -1841,7 +1919,8 @@ def main():
     torch.cuda.empty_cache()
     records["flash_attention"] = Record(
         "flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/flash_attention.py:30")
+        "src/repro/kernels/flash_attention/flash_attention.py:30",
+        flop_rate=TF32X3_FLOP_PER_S)
     adversarial_flash()
     for path in LM_PATHS:
         paths[path] = phase_lm(path, opts, records)

@@ -22,25 +22,51 @@
 // repro/kernels/spmm/spmm.py _spmm_kernel (spmm_sorted, and
 // scatter_sorted_block, its per-edge-value form), which multiplies a
 // one-hot edges-to-rows matrix on the MXU over row-block-aligned chunks
-// (prepare_chunks) because scatters are slow there. That layout is not carried over: on this card a gather-reduce over
-// the sorted segments fits better. The sampler's valid edges are a
-// dst-sorted prefix of length n_live (compact keeps the segment order of
-// expand_seed_edges), so each output row finds its edge range with one binary
-// search, and one warp per (row, 128-column slice) gathers h[src] rows
-// (coalesced: lane l reads columns l, l+32, l+64, l+96), scales them and sums
-// them in fp32 registers, in edge order. No atomics: the result is
-// deterministic, and each product is rounded before it is added, as in the
-// plain version, so only the order of the sums can differ from it.
+// (prepare_chunks) because scatters are slow there. That layout is not
+// carried over: on this card a gather-reduce over the sorted segments fits
+// better. The sampler's valid edges are a dst-sorted prefix of length n_live
+// (compact keeps the segment order of expand_seed_edges). Three kernels:
 //
-// What bounds it: bytes. Each edge reads one row of h (F floats) and the
-// output writes S x F floats; the arithmetic is 2 flops per gathered float,
-// far below the card's ratio of flops to bytes. Rows past the real seeds
-// have empty ranges and only write zeros. An edge whose dst is -1 (in the
-// transposed call: a source dropped by an overflowing dedup, which sorts
-// first) matches no row. scatter_rows reads each live edge's value row once
-// and adds it (1 flop per float), so it is bound by bytes the same way; its
-// widths run from F = 1 (edge_softmax with one head) to 256, and a width
-// below 128 leaves lanes of the warp idle (the c < F guard).
+//   row_offsets: one pass over the live prefix writes row_start[r], the
+//     index of the first edge whose key (dst, or in the transposed call the
+//     key of edge perm[i]) is >= r, for r = 0 .. num_rows. Each edge reads
+//     its key and its predecessor's once (through perm when it is given)
+//     and writes the offsets of the rows between them, a wide gap with the
+//     help of its whole block; rows up to the first key and past the last
+//     one are written by a grid-stride sweep, so a long run of empty rows
+//     costs no thread more than its share. n_live is read on the device.
+//     Keys of -1 (sources an overflowing dedup dropped) sort first and
+//     match no row; keys >= num_rows match none either.
+//   row sums: one warp per output row reads its two offsets and sums the
+//     row's edges in edge order: each edge's index (perm, mask, src, w) is
+//     loaded once per warp, by one lane of a batch of 32 and shuffled to the
+//     others, and its value row (up to 256 floats, 8 a lane, as two float4
+//     where the width and alignment allow) is gathered coalesced, 4 edges'
+//     loads in flight; wider rows take more passes. Rows with no edge only
+//     write zeros. The kernel keeps few registers, so that many warps hide
+//     the latency of rows that are mostly short or empty.
+//   heavy sums: a row of more than 128 edges (a popular source in the
+//     transposed call holds thousands) would stall one warp for its whole
+//     sequential sum and set the kernel's tail; the row sums list it
+//     instead (a device counter: the list's order varies, each row's sum
+//     does not), and a block of 8 warps per listed row sums it, 32 columns
+//     a warp, from edge indices staged 1024 at a time in shared memory,
+//     64 edges' loads in flight per warp.
+//
+// No sum is atomic: the result is deterministic, and each product is
+// rounded before it is added, in edge order, as in the plain version, so
+// only the order of the sums can differ from it (the earlier version of
+// this file, which searched each row's range with two binary searches per
+// warp and column slice, gives the same bits).
+//
+// What bounds them: bytes. The offsets pass reads each live key once (4
+// bytes, 8 through perm) and writes 4 (num_rows + 1) bytes; the sums read
+// two offsets a row, each live edge's indices (5 to 13 bytes) and one value
+// row (F floats), and write num_rows x F floats. The arithmetic is 1-2
+// flops per gathered float, far below the card's ratio of flops to bytes.
+// A width below 256 leaves lanes of the warp idle (F = 1 for an
+// edge_softmax with one head). A heavy row is bound by its sequential sum's
+// latency instead: 64 edges a round trip per warp.
 //
 // gather_dst_rows replaces repro/kernels/spmm/spmm.py _gather_kernel
 // (gather_rows_sorted, via gather_dst_block), which multiplies a one-hot
@@ -59,80 +85,236 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSlice = 128;             // columns per warp
+constexpr int kSlice = 128;             // columns per warp (gather_dst_rows)
 constexpr int kPerLane = kSlice / 32;
+constexpr int kRowCols = 256;           // columns per warp and pass (sums)
+constexpr int kHeavyEdges = 128;        // longer rows: heavy_sums_kernel
+constexpr int kGapSerial = 32;          // wider gaps: filled by the block
+constexpr int kChunk = 1024;            // edge indices a heavy block stages
+constexpr int kDeep = 64;               // value loads in flight, heavy warp
 constexpr long kGridCap = 132 * 64;
 
-// Edge i of the sweep: i itself, or perm[i] in the transposed call.
-__device__ __forceinline__ int edge_at(const int* perm, int i) {
-  return perm != nullptr ? perm[i] : i;
+__device__ __forceinline__ int live_count(const int* n_live, int E) {
+  if (n_live == nullptr) return E;
+  const int n = *n_live;
+  return n < 0 ? 0 : (n < E ? n : E);
 }
 
-__device__ __forceinline__ int lower_bound(const int* a, const int* perm,
-                                           int lo, int hi, int x) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[edge_at(perm, mid)] < x)
-      lo = mid + 1;
-    else
-      hi = mid;
+// Key of edge i of the sweep: key[i], or key[perm[i]] in the transposed call.
+__device__ __forceinline__ int key_at(const int* key, const int* perm,
+                                      int i) {
+  return key[perm != nullptr ? perm[i] : i];
+}
+
+// row_start[r] = #{i < n : key(i) < r} for r = 0 .. num_rows, over the
+// sorted live prefix. Index j < num_rows + 1 of the grid-stride sweep is a
+// row: 0 up to the first key, n past the last; index num_rows + 1 + i, for
+// i in [1, n), is a boundary between edges i - 1 and i, which writes i for
+// the rows r with key(i - 1) < r <= key(i) (clamped to [0, num_rows]). A
+// boundary thread writes a gap of up to kGapSerial rows itself; a wider gap
+// (the slots of a block's sources can jump by hundreds of thousands) goes
+// on a queue in shared memory that the whole block then fills.
+__global__ void row_offsets_kernel(const int* key, const int* perm, int E,
+                                   const int* n_live, int num_rows,
+                                   int* row_start) {
+  __shared__ int q_lo[kThreads], q_hi[kThreads], q_val[kThreads];
+  __shared__ int q_n;
+  const int n = live_count(n_live, E);
+  const int first = n > 0 ? key_at(key, perm, 0) : 0;
+  const int last = n > 0 ? key_at(key, perm, n - 1) : -1;
+  const long rows = (long)num_rows + 1;
+  const long items = rows + (n > 1 ? n - 1 : 0);
+  // block-uniform trip count: the queue's barriers need every thread
+  for (long base = (long)blockIdx.x * blockDim.x; base < items;
+       base += (long)gridDim.x * blockDim.x) {
+    if (threadIdx.x == 0) q_n = 0;
+    __syncthreads();
+    const long j = base + threadIdx.x;
+    if (j < rows) {
+      const int r = (int)j;
+      if (n == 0 || r <= first) row_start[r] = 0;
+      else if (r > last) row_start[r] = n;
+    } else if (j < items) {
+      const int i = (int)(j - rows) + 1;
+      const int lo = max(key_at(key, perm, i - 1) + 1, 0);
+      const int hi = min(key_at(key, perm, i), num_rows);
+      if (hi - lo < kGapSerial) {
+        for (int r = lo; r <= hi; ++r) row_start[r] = i;
+      } else {
+        const int q = atomicAdd(&q_n, 1);
+        q_lo[q] = lo;
+        q_hi[q] = hi;
+        q_val[q] = i;
+      }
+    }
+    __syncthreads();
+    for (int q = 0; q < q_n; ++q)
+      for (int r = q_lo[q] + threadIdx.x; r <= q_hi[q]; r += blockDim.x)
+        row_start[r] = q_val[q];
+    __syncthreads();   // the queue is read before the next round resets it
   }
-  return lo;
 }
 
+// One warp per output row: the row's edges row_start[row] ..
+// row_start[row + 1] - 1 in edge order, up to 256 columns a pass (wider rows
+// take more passes). kVec: the lane's columns are c0 + 4 lane + {0..3} and
+// c0 + 128 + 4 lane + {0..3}, read as two float4 (F % 4 == 0, 16-byte
+// aligned rows); else c0 + lane + 32 k. A row of more than kHeavyEdges
+// edges is left to heavy_sums_kernel: its index goes on the heavy list.
 // kEdgeValues: the value row of edge e is h[e] itself, unweighted
 // (scatter_rows); otherwise w[e] * h[src[e]] (spmm_rows).
-template <bool kEdgeValues>
-__global__ void spmm_rows_kernel(const int* dst, const int* src,
-                                 const float* w, const uint8_t* mask,
-                                 const int* perm, int E, const int* n_live,
-                                 const float* h, int T, int F, int S,
-                                 float* out) {
-  int n = E;
-  if (n_live != nullptr) {
-    n = *n_live;
-    n = n < 0 ? 0 : (n < E ? n : E);
-  }
-  const int slices = (F + kSlice - 1) / kSlice;
-  const long items = (long)S * slices;
+template <bool kEdgeValues, bool kVec>
+__global__ void row_sums_kernel(const int* row_start, const int* src,
+                                const float* w, const uint8_t* mask,
+                                const int* perm, const float* h, int T, int F,
+                                int S, float* out, int* heavy_count,
+                                int* heavy_rows) {
+  const int passes = (F + kRowCols - 1) / kRowCols;
+  const long items = (long)S * passes;
   const long nwarps = ((long)gridDim.x * blockDim.x) >> 5;
   const int lane = threadIdx.x & 31;
   for (long it = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
        it < items; it += nwarps) {
-    const int row = (int)(it / slices);
-    const int c0 = (int)(it % slices) * kSlice + lane;
-    const int lo = lower_bound(dst, perm, 0, n, row);
-    const int hi = lower_bound(dst, perm, lo, n, row + 1);
-    float acc[kPerLane];
+    const int row = (int)(it / passes);
+    const int c0 = (int)(it % passes) * kRowCols;
+    const int lo = row_start[row], hi = row_start[row + 1];
+    if (hi - lo > kHeavyEdges) {
+      if (c0 == 0 && lane == 0) heavy_rows[atomicAdd(heavy_count, 1)] = row;
+      continue;
+    }
+    int col[8];
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) acc[k] = 0.f;
-    for (int i = lo; i < hi; ++i) {
-      const int e = edge_at(perm, i);
-      if (!mask[e]) continue;
-      if (kEdgeValues) {
-        const float* vr = h + (long)e * F;
+    for (int k = 0; k < 8; ++k)
+      col[k] = kVec ? c0 + 128 * (k / 4) + 4 * lane + k % 4
+                    : c0 + lane + 32 * k;
+    float acc[8];
 #pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          const int c = c0 + 32 * k;
-          if (c < F) acc[k] = __fadd_rn(acc[k], vr[c]);
+    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+    for (int base = lo; base < hi; base += 32) {
+      // lane l loads the indices of edge base + l
+      int e = 0, ok = 0;
+      float we = 0.f;
+      if (base + lane < hi) {
+        e = perm != nullptr ? perm[base + lane] : base + lane;
+        ok = mask[e];
+        if (!kEdgeValues && ok) {
+          int sv = src[e];
+          if (sv < 0) sv += T;  // the plain version's negative-index wrap
+          we = w[e];
+          e = sv;               // the value row to read
         }
-        continue;
       }
-      int s = src[e];
-      if (s < 0) s += T;  // the plain version's negative-index wrap
-      const float we = w[e];
-      const float* hr = h + (long)s * F;
+      // four edges at a time, their loads in flight together; a masked
+      // or missing edge adds 0, which leaves the sum's bits as they are
+      // (it starts at +0 and is never -0)
+      const int cnt = min(32, hi - base);
+      for (int j0 = 0; j0 < cnt; j0 += 4) {
+        float x[4][8], wj[4];
 #pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        const int c = c0 + 32 * k;
-        if (c < F) acc[k] = __fadd_rn(acc[k], __fmul_rn(hr[c], we));
+        for (int u = 0; u < 4; ++u) {
+          const int j = (j0 + u) & 31;
+          const bool use = __shfl_sync(0xffffffffu, ok, j) && j0 + u < cnt;
+          const float* vr = h + (long)__shfl_sync(0xffffffffu, e, j) * F;
+          wj[u] = __shfl_sync(0xffffffffu, we, j);
+          if (kVec) {
+#pragma unroll
+            for (int k = 0; k < 8; k += 4) {
+              float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+              if (use && col[k] < F) q = __ldg((const float4*)(vr + col[k]));
+              x[u][k] = q.x;
+              x[u][k + 1] = q.y;
+              x[u][k + 2] = q.z;
+              x[u][k + 3] = q.w;
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              x[u][k] = use && col[k] < F ? __ldg(vr + col[k]) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            acc[k] = __fadd_rn(
+                acc[k], kEdgeValues ? x[u][k] : __fmul_rn(x[u][k], wj[u]));
       }
     }
     float* o = out + (long)row * F;
+    if (kVec) {
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int c = c0 + 32 * k;
-      if (c < F) o[c] = acc[k];
+      for (int k = 0; k < 8; k += 4)
+        if (col[k] < F)
+          *(float4*)(o + col[k]) =
+              make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (col[k] < F) o[col[k]] = acc[k];
+    }
+  }
+}
+
+// The rows of more than kHeavyEdges edges (a popular source in the
+// transposed call holds thousands), one block of 8 warps per row: warp w
+// sums columns 32 w + lane (+ 256 per pass) over the row's edges in edge
+// order, as row_sums_kernel does. The block stages the indices of
+// kChunk edges at a time in shared memory, and each warp keeps kDeep
+// edges' value loads in flight, where a light warp keeps 4.
+template <bool kEdgeValues>
+__global__ void heavy_sums_kernel(const int* row_start, const int* src,
+                                  const float* w, const uint8_t* mask,
+                                  const int* perm, const float* h, int T,
+                                  int F, float* out, const int* heavy_count,
+                                  const int* heavy_rows) {
+  __shared__ int s_e[kChunk];
+  __shared__ float s_w[kChunk];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_heavy = *heavy_count;
+  for (int item = blockIdx.x; item < n_heavy; item += gridDim.x) {
+    const int row = heavy_rows[item];
+    const int lo = row_start[row], hi = row_start[row + 1];
+    for (int c0 = 0; c0 < F; c0 += kThreads) {
+      const int c = c0 + 32 * warp + lane;
+      float acc = 0.f;
+      for (int base = lo; base < hi; base += kChunk) {
+        const int cnt = min(kChunk, hi - base);
+        __syncthreads();   // the previous chunk is consumed
+        for (int j = threadIdx.x; j < cnt; j += kThreads) {
+          int e = perm != nullptr ? perm[base + j] : base + j;
+          float we = 0.f;
+          if (!mask[e]) {
+            e = -1;            // masked: skipped
+          } else if (!kEdgeValues) {
+            int sv = src[e];
+            if (sv < 0) sv += T;
+            we = w[e];
+            e = sv;
+          }
+          s_e[j] = e;
+          s_w[j] = we;
+        }
+        __syncthreads();
+        if (c0 + 32 * warp >= F) continue;   // no column of this warp
+        for (int j0 = 0; j0 < cnt; j0 += kDeep) {
+          float x[kDeep];
+#pragma unroll
+          for (int u = 0; u < kDeep; ++u) {
+            const int e = j0 + u < cnt ? s_e[j0 + u] : -1;
+            x[u] = e >= 0 && c < F ? __ldg(h + (long)e * F + c) : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < kDeep; ++u) {
+            if (kEdgeValues) {
+              acc = __fadd_rn(acc, x[u]);
+            } else {
+              const float we = j0 + u < cnt ? s_w[j0 + u] : 0.f;
+              acc = __fadd_rn(acc, __fmul_rn(x[u], we));
+            }
+          }
+        }
+      }
+      if (c < F) out[(long)row * F + c] = acc;
     }
   }
 }
@@ -167,34 +349,75 @@ __global__ void gather_rows_kernel(const int* dst, const uint8_t* mask, int E,
 
 }  // namespace
 
-static int row_blocks(int S, int F) {
-  const long items = (long)S * ((F + kSlice - 1) / kSlice);
-  long blocks = (items * 32 + kThreads - 1) / kThreads;
+static int grid_for(long threads) {
+  long blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > kGridCap) blocks = kGridCap;
   if (blocks < 1) blocks = 1;
   return (int)blocks;
 }
 
+static void launch_offsets(const int* key, const int* perm, int E,
+                           const int* n_live, int num_rows, int* row_start,
+                           cudaStream_t stream) {
+  row_offsets_kernel<<<grid_for((long)num_rows + 2 + E), kThreads, 0,
+                       stream>>>(key, perm, E, n_live, num_rows, row_start);
+}
+
+// The offsets pass, then the row sums, then the heavy rows. scratch: 2
+// (num_rows + 1) + 1 int32: the offsets, the heavy-row count, the heavy
+// rows. kVec when every value row starts 16-byte aligned.
+template <bool kEdgeValues>
+static int segment_sums(const int* key, const int* src, const float* w,
+                        const uint8_t* mask, const int* perm, int E,
+                        const int* n_live, const float* h, int T, int F,
+                        int S, int* scratch, float* out,
+                        cudaStream_t stream) {
+  int* row_start = scratch;
+  int* heavy_count = scratch + S + 1;
+  int* heavy_rows = heavy_count + 1;
+  cudaError_t err = cudaMemsetAsync(heavy_count, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  launch_offsets(key, perm, E, n_live, S, row_start, stream);
+  const int grid = grid_for((long)S * ((F + kRowCols - 1) / kRowCols) * 32);
+  if (F % 4 == 0 && ((uintptr_t)h & 15) == 0)
+    row_sums_kernel<kEdgeValues, true><<<grid, kThreads, 0, stream>>>(
+        row_start, src, w, mask, perm, h, T, F, S, out, heavy_count,
+        heavy_rows);
+  else
+    row_sums_kernel<kEdgeValues, false><<<grid, kThreads, 0, stream>>>(
+        row_start, src, w, mask, perm, h, T, F, S, out, heavy_count,
+        heavy_rows);
+  heavy_sums_kernel<kEdgeValues><<<2 * 132, kThreads, 0, stream>>>(
+      row_start, src, w, mask, perm, h, T, F, out, heavy_count, heavy_rows);
+  return (int)cudaGetLastError();
+}
+
+// The offsets pass alone (the card tests hold it against a sorted search).
+extern "C" int spmm_row_offsets(const int* key, const int* perm, int E,
+                                const int* n_live, int num_rows,
+                                int* row_start, void* stream) {
+  launch_offsets(key, perm, E, n_live, num_rows, row_start,
+                 (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int spmm_rows(const int* dst, const int* src, const float* w,
                          const uint8_t* mask, const int* perm, int E,
                          const int* n_live, const float* h, int T, int F,
-                         int S, float* out, void* stream) {
-  spmm_rows_kernel<false><<<row_blocks(S, F), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      dst, src, w, mask, perm, E, n_live, h, T, F, S, out);
-  return (int)cudaGetLastError();
+                         int S, int* scratch, float* out, void* stream) {
+  return segment_sums<false>(dst, src, w, mask, perm, E, n_live, h, T, F, S,
+                             scratch, out, (cudaStream_t)stream);
 }
 
 // values: (E, F), one row per edge in the edges' own order (perm only
 // changes the order in which each output row reads its edges).
 extern "C" int scatter_rows(const int* dst, const uint8_t* mask,
                             const int* perm, int E, const int* n_live,
-                            const float* values, int F, int S, float* out,
-                            void* stream) {
-  spmm_rows_kernel<true><<<row_blocks(S, F), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      dst, nullptr, nullptr, mask, perm, E, n_live, values, E, F, S, out);
-  return (int)cudaGetLastError();
+                            const float* values, int F, int S,
+                            int* scratch, float* out, void* stream) {
+  return segment_sums<true>(dst, nullptr, nullptr, mask, perm, E, n_live,
+                            values, E, F, S, scratch, out,
+                            (cudaStream_t)stream);
 }
 
 extern "C" int gather_dst_rows(const int* dst, const uint8_t* mask, int E,

@@ -46,8 +46,9 @@ SIGNATURES = {
     "frontier_segment_select": ("select", [_P, _P, _I, _P, _P, _P, _I, _P,
                                            _P, _P, _P]),
     "spmm_rows": ("spmm", [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P,
-                           _P]),
-    "scatter_rows": ("spmm", [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P]),
+                           _P, _P]),
+    "scatter_rows": ("spmm", [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P]),
+    "spmm_row_offsets": ("spmm", [_P, _P, _I, _P, _I, _P, _P]),
     "gather_dst_rows": ("spmm", [_P, _P, _I, _P, _P, _I, _I, _P, _P]),
     "edge_softmax": ("edge_softmax", [_P, _P, _I, _P, _P, _I, _I, _P, _P]),
     "flash_attention_fwd": ("flash_attention", [_P] * 4 + [_I] * 6

@@ -61,6 +61,13 @@ def _checked(q, k, v):
     return B, Sq, k.shape[1], Hq, Hkv, hd
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Every (batch, seq, head) row of ``t`` starts 16-byte aligned."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:3]))
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None,
@@ -75,15 +82,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty(B, Sq, Hq, hd, dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    # rows start 4-element aligned: the kernel stages them 4 at a time
-    vec = all(t.data_ptr() % (4 * t.element_size()) == 0
-              and all(s % 4 == 0 for s in t.stride()[:3]) for t in (q, k, v))
+    # bit 0: q's rows start 16-byte aligned, bit 1: k's and v's; the
+    # kernel copies such rows 16 bytes at a time, others element-wise
+    vec = int(_aligned16(q)) | 2 * int(_aligned16(k) and _aligned16(v))
     status = _build.function("flash_attention_fwd")(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         B, Sq, Sk, Hq, Hkv, hd, *strides, int(bool(causal)),
         int(window is not None), int(window or 0),
         int(softcap is not None), ctypes.c_float(softcap or 0.0),
-        ctypes.c_float(scale), _DTYPES[q.dtype], int(vec), _stream(q.device))
+        ctypes.c_float(scale), _DTYPES[q.dtype], vec, _stream(q.device))
     _build.check(status, "flash_attention_fwd")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -18,6 +18,11 @@ past it are masked. ``build_block`` emits exactly that layout:
 permutes the edges by ``src_perm``, a stable sort by ``src_slot`` with
 the masked edges last, so the same prefix is sorted by ``src_slot``.
 
+The SpMM and ``scatter_rows`` kernels first write each output row's
+edge range into an int32 scratch that the wrapper allocates (``num_rows
++ 1`` offsets, and a list of the rows too long for one warp), then sum
+each row; ``n_live`` stays on the device.
+
 On a CPU tensor each wrapper runs its plain version in ``ref.py``; on a
 CUDA tensor it launches the kernel or raises, and adds one to its entry
 of :data:`LAUNCHES`.
@@ -48,6 +53,15 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
                          "tensor")
 
 
+def _scratch(num_rows: int, dev) -> torch.Tensor:
+    """The kernels' int32 scratch: each output row's first edge and one
+    past the last row's, the count and list of rows too long for one warp
+    (written on the device, never read here; the caching allocator hands
+    it out in stream order)."""
+    return torch.empty(2 * (num_rows + 1) + 1, dtype=torch.int32,
+                       device=dev)
+
+
 def _spmm(src_slot, dst_slot, weight, mask, h, num_rows, n_live,
           perm=None):
     dev = h.device
@@ -68,7 +82,8 @@ def _spmm(src_slot, dst_slot, weight, mask, h, num_rows, n_live,
     status = _build.function("spmm_rows")(
         _build.ptr(dst_slot), _build.ptr(src_slot), _build.ptr(weight),
         _build.ptr(mask), _build.ptr(perm), E, _build.ptr(n_live),
-        _build.ptr(h), T, F, num_rows, _build.ptr(out), _stream(dev))
+        _build.ptr(h), T, F, num_rows, _build.ptr(_scratch(num_rows, dev)),
+        _build.ptr(out), _stream(dev))
     _build.check(status, "spmm_rows")
     return out
 
@@ -132,8 +147,8 @@ def scatter_rows(dst_slot: torch.Tensor, mask: torch.Tensor,
     out = torch.empty(num_rows, F, dtype=torch.float32, device=dev)
     status = _build.function("scatter_rows")(
         _build.ptr(dst_slot), _build.ptr(mask), _build.ptr(perm), E,
-        _build.ptr(n_live), _build.ptr(values), F, num_rows, _build.ptr(out),
-        _stream(dev))
+        _build.ptr(n_live), _build.ptr(values), F, num_rows,
+        _build.ptr(_scratch(num_rows, dev)), _build.ptr(out), _stream(dev))
     _build.check(status, "scatter_rows")
     LAUNCHES["scatter_rows"] += 1
     return out

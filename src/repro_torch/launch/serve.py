@@ -1,10 +1,11 @@
 """Serving on the card (twin of ``repro.launch.serve``).
 
 GNN node classification, the synchronous path: a stream of seed
-requests over the validation ids, each answered
-by one sample -> gather -> model forward through ``TrainEngine``, with
-the overflow-retry contract and the same JSON report as the reference's
-``--driver off``:
+requests over the validation ids (``--request-size`` seeds each, padded
+to ``--batch``; a scan, or a Zipfian draw with ``--trace zipf
+--zipf-a``), each answered by one sample -> gather -> model forward
+through ``TrainEngine``, with the overflow-retry contract and the same
+JSON report as the reference's ``--driver off``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload gnn \\
       --dataset products --scale 0.25 --sampler labor-0 \\
@@ -69,15 +70,23 @@ def build_gnn_serving(args, ds=None):
 
 
 def gnn_trace(args, ds):
-    """``--requests`` requests of one full batch of seeds each: a
-    sequential scan of the validation ids (the reference's ``--trace
-    scan``)."""
+    """The request stream, the reference's ``_gnn_trace``: ``--requests``
+    requests of ``--request-size`` seeds each (0: one full ``--batch``)
+    over the validation ids, a sequential scan or a Zipfian draw
+    (``--trace zipf``, exponent ``--zipf-a``) from numpy's generator at
+    ``seed + 7``, so every request holds the reference's seeds."""
     idx = np.asarray(ds.val_idx)
-    size = args.batch
+    size = args.request_size or args.batch
+    rng = np.random.default_rng(args.seed + 7)
     out = []
     for r in range(args.requests):
-        lo = (r * size) % max(len(idx) - size, 1)
-        out.append(idx[lo:lo + size])
+        if args.trace == "zipf":
+            ranks = np.arange(1, len(idx) + 1, dtype=np.float64)
+            p = ranks ** -args.zipf_a
+            out.append(rng.choice(idx, size=size, p=p / p.sum()))
+        else:
+            lo = (r * size) % max(len(idx) - size, 1)
+            out.append(idx[lo:lo + size])
     return out
 
 
@@ -123,7 +132,8 @@ def serve_gnn_sync(args, built=None):
     report = stats.report()
     report.update(sampler=engine.sampler.name, backend=engine.backend,
                   exact=engine.sampler.name == "full", driver="off",
-                  requests=args.requests, request_size=args.batch,
+                  requests=args.requests,
+                  request_size=args.request_size or args.batch,
                   batch=args.batch,
                   accuracy=round(_accuracy(requests, answers, labels), 4))
     print(json.dumps(report, indent=1))
@@ -212,6 +222,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--fanouts", default="10,10,10")
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--request-size", type=int, default=0,
+                    help="seeds per request, each padded to --batch (0 = "
+                         "one full batch per request)")
+    ap.add_argument("--trace", default="scan", choices=["scan", "zipf"],
+                    help="request stream: sequential scan of the "
+                         "validation ids, or a Zipfian draw")
+    ap.add_argument("--zipf-a", type=float, default=1.1,
+                    help="Zipf exponent of --trace zipf")
     ap.add_argument("--driver", default="off", choices=["async", "off"])
     ap.add_argument("--seed", type=int, default=0)
     return ap

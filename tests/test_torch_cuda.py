@@ -494,3 +494,308 @@ def test_prefill_runs_the_kernel_per_layer(cuda_device, monkeypatch):
     for got, want in zip(cache, want_cache):
         for n in ("k", "v"):
             torch.testing.assert_close(got[n], want[n], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("Sq,Sk,causal", [(1, 1, True), (33, 33, True),
+                                          (130, 130, True),
+                                          (1000, 1000, True),
+                                          (33, 1000, False),
+                                          (1000, 33, False)])
+def test_flash_kernel_every_head_dim(cuda_device, hd, Sq, Sk, causal):
+    """The tensor-core kernel at every built head dimension and at
+    lengths off the 64-query and 32/64-key tiles: GQA 8 with window 1,
+    a softcap with a custom scale, a misaligned q (staged element-wise)
+    and bf16; fp32 within 2e-5 x max(1, max|v|), bf16 within 3e-2."""
+    variants = [
+        (8, 1, 1, None, None, torch.float32, "contiguous"),
+        (2, 2, None, 30.0, 0.3, torch.float32, "contiguous"),
+        (4, 2, max(1, Sq // 2), None, None, torch.float32, "misaligned"),
+        (8, 1, None, 50.0, None, torch.bfloat16, "contiguous"),
+    ]
+    for Hq, Hkv, window, softcap, scale, dtype, layout in variants:
+        case = (1, Sq, Sk, Hq, Hkv, hd, causal, window, softcap, scale,
+                dtype)
+        q, k, v = _flash_inputs(case, cuda_device, layout)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        want = fr_attn.attention_ref(q, k, v, **kw)
+        got = fa.flash_attention(q, k, v, causal, window, softcap, scale)
+        torch.cuda.synchronize()
+        atol = (3e-2 if dtype == torch.bfloat16
+                else 2e-5 * max(1.0, v.abs().max().item()))
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=atol, msg=str(case))
+
+
+# -- C2: the seeded draws on the card equal the CPU draw ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", ["uniform", "normal", "randint"])
+def test_rng_draws_on_the_card_equal_the_cpu(cuda_device, draw):
+    """More than one pass of ``_CHUNK`` counters, bit for bit: the draws
+    that make the LM weights and prompts on the card are the CPU's (and
+    so ``jax.random``'s)."""
+    n = TR._CHUNK + 4099
+    key = TR.key(3)
+    fn = {"uniform": lambda d: TR.uniform(key, (n,), -0.5, 2.0, device=d),
+          "normal": lambda d: TR.normal(key, (n,), device=d),
+          "randint": lambda d: TR.randint(key, (n,), 0, 256_000,
+                                          device=d)}[draw]
+    got, want = fn(cuda_device).cpu(), fn("cpu")
+    assert got.dtype == want.dtype
+    bad = (got.view(torch.int32) != want.view(torch.int32)).nonzero()
+    assert bad.numel() == 0, (f"{draw}: {bad.numel()} of {n} differ, first "
+                              f"at {bad[:5].flatten().tolist()}")
+
+
+@pytest.mark.cuda
+def test_init_params_on_the_card_equal_the_cpu(cuda_device):
+    """Every leaf of the reduced gemma2-2b's initial parameters, drawn on
+    the card, equals the CPU draw bit for bit."""
+    from repro_torch import configs
+    from repro_torch.configs.reduce import reduce_cfg
+    from repro_torch.models.transformer import stack
+    cfg = reduce_cfg(configs.get_config("gemma2-2b"))
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, tree
+
+    got = dict(leaves(stack.init_params(TR.key(0), cfg, device="cuda")))
+    want = dict(leaves(stack.init_params(TR.key(0), cfg, device="cpu")))
+    assert got.keys() == want.keys() and len(got) > 10
+    for name, t in got.items():
+        assert torch.equal(t.cpu(), want[name]), name
+
+
+# -- the SpMM's offsets pass against the binary-search kernel it replaced ----
+
+#: the earlier row kernel of csrc/spmm.cu (two binary searches per warp and
+#: 128-column slice), kept here as the yardstick of the offsets pass
+_SEARCH_KERNEL = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+namespace {
+constexpr int kThreads = 256, kSlice = 128, kPerLane = kSlice / 32;
+constexpr long kGridCap = 132 * 64;
+__device__ __forceinline__ int edge_at(const int* perm, int i) {
+  return perm != nullptr ? perm[i] : i;
+}
+__device__ __forceinline__ int lower_bound(const int* a, const int* perm,
+                                           int lo, int hi, int x) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[edge_at(perm, mid)] < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+template <bool kEdgeValues>
+__global__ void spmm_rows_kernel(const int* dst, const int* src,
+                                 const float* w, const uint8_t* mask,
+                                 const int* perm, int E, const int* n_live,
+                                 const float* h, int T, int F, int S,
+                                 float* out) {
+  int n = E;
+  if (n_live != nullptr) { n = *n_live; n = n < 0 ? 0 : (n < E ? n : E); }
+  const int slices = (F + kSlice - 1) / kSlice;
+  const long items = (long)S * slices;
+  const long nwarps = ((long)gridDim.x * blockDim.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  for (long it = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       it < items; it += nwarps) {
+    const int row = (int)(it / slices);
+    const int c0 = (int)(it % slices) * kSlice + lane;
+    const int lo = lower_bound(dst, perm, 0, n, row);
+    const int hi = lower_bound(dst, perm, lo, n, row + 1);
+    float acc[kPerLane];
+    for (int k = 0; k < kPerLane; ++k) acc[k] = 0.f;
+    for (int i = lo; i < hi; ++i) {
+      const int e = edge_at(perm, i);
+      if (!mask[e]) continue;
+      if (kEdgeValues) {
+        const float* vr = h + (long)e * F;
+        for (int k = 0; k < kPerLane; ++k) {
+          const int c = c0 + 32 * k;
+          if (c < F) acc[k] = __fadd_rn(acc[k], vr[c]);
+        }
+        continue;
+      }
+      int s = src[e];
+      if (s < 0) s += T;
+      const float we = w[e];
+      const float* hr = h + (long)s * F;
+      for (int k = 0; k < kPerLane; ++k) {
+        const int c = c0 + 32 * k;
+        if (c < F) acc[k] = __fadd_rn(acc[k], __fmul_rn(hr[c], we));
+      }
+    }
+    float* o = out + (long)row * F;
+    for (int k = 0; k < kPerLane; ++k) {
+      const int c = c0 + 32 * k;
+      if (c < F) o[c] = acc[k];
+    }
+  }
+}
+int blocks(int S, int F) {
+  const long items = (long)S * ((F + kSlice - 1) / kSlice);
+  long b = (items * 32 + kThreads - 1) / kThreads;
+  return (int)(b > kGridCap ? kGridCap : (b < 1 ? 1 : b));
+}
+}  // namespace
+extern "C" int search_spmm_rows(const int* dst, const int* src,
+                                const float* w, const uint8_t* mask,
+                                const int* perm, int E, const int* n_live,
+                                const float* h, int T, int F, int S,
+                                float* out) {
+  spmm_rows_kernel<false><<<blocks(S, F), kThreads>>>(
+      dst, src, w, mask, perm, E, n_live, h, T, F, S, out);
+  return (int)cudaDeviceSynchronize();
+}
+extern "C" int search_scatter_rows(const int* dst, const uint8_t* mask,
+                                   const int* perm, int E, const int* n_live,
+                                   const float* values, int F, int S,
+                                   float* out) {
+  spmm_rows_kernel<true><<<blocks(S, F), kThreads>>>(
+      dst, nullptr, nullptr, mask, perm, E, n_live, values, E, F, S, out);
+  return (int)cudaDeviceSynchronize();
+}
+'''
+
+
+@pytest.fixture(scope="module")
+def search_kernel(tmp_path_factory):
+    """The binary-search kernel above, built with nvcc into a scratch
+    directory and loaded with ctypes, as the package builds its own
+    (a plain C interface compiles in seconds)."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    d = tmp_path_factory.mktemp("search_kernel")
+    src, lib = d / "search.cu", d / "search.so"
+    src.write_text(_SEARCH_KERNEL)
+    subprocess.run([_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", str(lib), str(src)], check=True)
+    so = ctypes.CDLL(str(lib))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    so.search_spmm_rows.argtypes = [P] * 5 + [I, P, P, I, I, I, P]
+    so.search_scatter_rows.argtypes = [P, P, P, I, P, P, I, I, P]
+    return so
+
+
+def _keyed_edges(g, E, rows, live_n, dev, case):
+    """Keys over ``rows`` rows for the edge cases of the offsets pass
+    (sorted over the live prefix when read through the returned perm, or
+    directly when perm is None), with empty rows before the first key,
+    between keys and after the last; -1 keys at the front
+    (``neg``); keys at and past ``rows`` at the back (``past``); two rows
+    of 1,200 and 200 edges, past the 128 one warp sums and across two
+    1,024-edge chunks of the kernel that takes them (``hubs``); a gap of
+    ~800 rows between two clusters, wider than one thread writes
+    (``wide gap``)."""
+    lo, hi = (5, rows - 5) if rows > 10 else (0, rows)
+    key = torch.randint(lo, max(hi, lo + 1), (E,), generator=g, device=dev,
+                        dtype=torch.int32)
+    key = key - key % 3      # two rows of three empty between keys
+    if case == "neg":
+        key[:E // 5] = -1
+    if case == "past":
+        key[-(E // 5):] = rows + torch.arange(E // 5, device=dev,
+                                              dtype=torch.int32) % 3
+    if case == "hubs":   # rows too long for one warp: 1,200 and 200 edges
+        key[:1200] = 7
+        key[1200:1400] = 11
+    if case == "wide gap":   # ~800 empty rows between two clusters of keys
+        key = torch.where(key < rows // 2, key % 50, rows - 50 + key % 45)
+    live = torch.arange(E, device=dev) < live_n
+    mask = live & (torch.rand(E, generator=g, device=dev) > 0.1)
+    return key, mask, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 8, 47, 256, 300])
+@pytest.mark.parametrize("case", ["gaps", "neg", "past", "hubs",
+                                  "wide gap", "no live edge"])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_spmm_forms_equal_the_search_kernel(cuda_device, search_kernel, F,
+                                            case, with_perm):
+    """The offsets pass against a sorted search, then all four SpMM forms
+    (forward, transposed through a perm, scatter dst-sorted and through a
+    perm) bit for bit against the binary-search kernel they replace, and
+    two calls bit-equal."""
+    from repro_torch.kernels import _build
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(F * 31 + len(case))
+    E, rows, T = 6000, 900, 700
+    live_n = 0 if case == "no live edge" else 4500
+    key, mask, live = _keyed_edges(g, E, rows, live_n, dev, case)
+    n_live = torch.tensor(live_n, dtype=torch.int32, device=dev)
+    if with_perm:   # the edges in any order; perm sorts the live prefix
+        order = torch.randperm(E, generator=g, device=dev)
+        key, mask, live = key[order], mask[order], live[order]
+        perm = torch.argsort(torch.where(live, key, 2**30),
+                             stable=True).to(torch.int32)
+    else:
+        key = torch.where(live, key, -1)
+        key[:live_n] = torch.sort(key[:live_n]).values
+        perm = None
+    sweep = key[perm.long()] if with_perm else key
+    want_start = torch.searchsorted(sweep[:live_n].contiguous(),
+                                    torch.arange(rows + 1, device=dev,
+                                                 dtype=torch.int32))
+    got_start = torch.full((rows + 1,), -7, dtype=torch.int32, device=dev)
+    _build.check(_build.function("spmm_row_offsets")(
+        key.data_ptr(), _build.ptr(perm), E, n_live.data_ptr(), rows,
+        got_start.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "spmm_row_offsets")
+    assert torch.equal(got_start, want_start.to(torch.int32))
+
+    src = torch.randint(-T, T, (E,), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand(E, generator=g, device=dev) - 0.3
+    h = torch.randn(T, F, generator=g, device=dev)
+    vals = torch.randn(E, F, generator=g, device=dev)
+    P = _build.ptr
+
+    def old_spmm():
+        out = torch.empty(rows, F, device=dev)
+        assert search_kernel.search_spmm_rows(
+            P(key), P(src), P(w), P(mask), P(perm), E, P(n_live),
+            P(h), T, F, rows, P(out)) == 0
+        return out
+
+    def old_scatter():
+        out = torch.empty(rows, F, device=dev)
+        assert search_kernel.search_scatter_rows(
+            P(key), P(mask), P(perm), E, P(n_live), P(vals), F,
+            rows, P(out)) == 0
+        return out
+
+    if with_perm:   # the transposed SpMM: its "dst" is the src_slot
+        def new_spmm():
+            return sk.spmm_transposed(key, src, w, mask, perm, h, rows,
+                                      n_live=n_live)
+    else:
+        def new_spmm():
+            return sk.spmm_block(src, key, w, mask, h, rows, n_live=n_live)
+
+    def new_scatter():
+        return sk.scatter_rows(key, mask, vals, rows, perm=perm,
+                               n_live=n_live)
+
+    for new, old in ((new_spmm, old_spmm), (new_scatter, old_scatter)):
+        a, b = new(), new()
+        torch.cuda.synchronize()
+        ref = old()
+        assert torch.equal(a, b)
+        assert torch.equal(a.view(torch.int32), ref.view(torch.int32))

@@ -8,6 +8,9 @@ against repro on the CPU (inputs from numpy with a seed):
     in another order);
   * ``layers._attend_flags`` against repro's with a small ``chunk_q``, so
     that its q-chunked branch runs;
+  * the kernel's 3xTF32 tensor-core arithmetic, emulated in plain torch
+    (TF32 rounding as ``cvt.rna``), against the plain version (2e-5) and
+    fp64 (1e-4 relative L2), and 1xTF32's larger error beside it;
   * the wrapper: on the CPU it is the plain version; its autograd
     Function (the kernel forward, the plain version's gradient) driven on
     CPU tensors with the kernel launch replaced by the plain version,
@@ -128,6 +131,73 @@ def test_attend_flags_chunked_matches_repro(arch, kind):
                               scale=TL._scale(tcfg, tcfg.head_dim))
     np.testing.assert_allclose(got.numpy(), direct.numpy(), atol=2e-6,
                                rtol=0)
+
+
+def _tf32(x):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: add half an
+    ulp of the 10-bit mantissa to the bits, clear the low 13 (ties away
+    from zero)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(
+        torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b the way the kernel's mma.sync computes it: 3xTF32 sums
+    a_small b_big + a_big b_small, then a_big b_big (each x split into
+    big = tf32(x) and small = tf32(x - big)); 1xTF32 is a_big b_big."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def _attention_tf32(q, k, v, passes, causal=True, window=None,
+                    softcap=None, scale=None):
+    """The kernel's arithmetic in plain torch: both products in 3xTF32
+    (or 1xTF32), the scale on the scores, the softcap, -1e30 masking, an
+    unnormalised softmax divided by its row sum at the end."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, hd).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 3, 1)[:, :, None]            # (B, Hkv, 1, hd, Sk)
+    s = _mm_tf32(qg, kt, passes) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(fr.visible(Sq, Sk, causal, window, q.device), s,
+                    torch.tensor(-1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _mm_tf32(p, v.permute(0, 2, 1, 3)[:, :, None], passes)
+    o = o / p.sum(-1, keepdim=True)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_3xtf32_arithmetic_keeps_the_gates(case):
+    """The kernel's 3xTF32 products, emulated, against the plain version
+    within 2e-5 x max(1, max|v|) and against an fp64 recompute within
+    the LM gate of 1e-4 relative L2; 1xTF32 (one product of the rounded
+    operands) misses by far more, which is why the kernel splits."""
+    q, k, v = (torch.from_numpy(a) for a in _mk(
+        case["B"], case["S"], case["Hq"], case["Hkv"], case["hd"],
+        seed=case["S"]))
+    kw = dict(causal=True, window=case["window"], softcap=case["softcap"])
+    plain = fr.attention_ref(q, k, v, **kw)
+    f64 = fr.attention_ref(q.double(), k.double(), v.double(), **kw)
+    tol = 2e-5 * max(1.0, v.abs().max().item())
+    errs = {}
+    for passes in (3, 1):
+        got = _attention_tf32(q, k, v, passes, **kw)
+        errs[passes] = ((got.double() - f64).norm() / f64.norm()).item()
+        gap = (got - plain).abs().max().item()
+        if passes == 3:
+            assert gap <= tol and errs[3] <= 1e-4, (gap, errs)
+        else:   # 1xTF32 fails the kernel's gate against the plain version
+            assert gap > tol, gap
+    assert errs[1] > 10 * errs[3], errs
+    assert (_tf32(torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12]))
+            == torch.tensor([1 + 2**-10, -(1 + 2**-10), 1.0])).all()
 
 
 def test_autograd_function_matches_jax_vjp(monkeypatch):

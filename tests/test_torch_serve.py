@@ -11,11 +11,14 @@ a small graph (products at scale 0.004, batch 64, fanouts 5,5,5, hidden
     blocking);
   * the overflow-retry contract: the same number of cap doublings;
   * the launcher prints the reference launcher's JSON keys, sampler,
-    ``exact`` flag, served counts and accuracy, with LABOR-0 and with
-    the default sampler (``full``); every other registry entry serves
-    through the port's launcher;
+    ``exact`` flag, served counts, request size and accuracy, with
+    LABOR-0, with the default sampler (``full``) and on a Zipfian trace
+    of small requests; its request stream (``--request-size``,
+    ``--trace``, ``--zipf-a``) holds the reference's seeds; every other
+    registry entry serves through the port's launcher;
   * the port imports neither jax nor repro, and asks for CUDA by default.
 """
+import argparse
 import json
 import re
 import sys
@@ -183,15 +186,20 @@ SERVE_ARGS = ["--workload", "gnn", "--driver", "off", "--dataset",
               "--requests", "2"]
 
 
+ZIPF_ARGS = ["--request-size", "32", "--trace", "zipf", "--zipf-a", "1.1"]
+
+
 @pytest.mark.parametrize("sampler", ["labor-0", None])
 def test_launcher_prints_the_reference_keys(sampler, monkeypatch, capsys):
-    """Both launchers on the same surface, with ``--sampler labor-0`` and
-    with no ``--sampler`` at all (the default, ``full``): the same keys,
-    sampler, ``exact`` flag, served counts and accuracy (same weights
-    from the same seed, the same blocks)."""
+    """Both launchers on the same surface, with ``--sampler labor-0`` on a
+    Zipfian trace of 32-seed requests padded to the batch, and with no
+    ``--sampler`` at all (the default, ``full``) on the default scan of
+    full batches: the same keys, sampler, ``exact`` flag, served counts,
+    request size and accuracy (same weights from the same seed, the same
+    requests and blocks)."""
     from repro.launch import serve as jserve
     from repro_torch.launch import serve as tserve
-    args = SERVE_ARGS
+    args = SERVE_ARGS + ZIPF_ARGS
     if sampler is None:
         i = SERVE_ARGS.index("--sampler")
         args = SERVE_ARGS[:i] + SERVE_ARGS[i + 2:]
@@ -202,12 +210,39 @@ def test_launcher_prints_the_reference_keys(sampler, monkeypatch, capsys):
     out = json.loads(capsys.readouterr().out)
     assert set(out) == set(ref) and out == report
     assert out["requests_served"] == ref["requests_served"] == 2
-    for k in ("sampler", "exact", "accuracy", "batches",
-              "avg_batch_occupancy", "grow_events", "timeouts", "rejected"):
+    for k in ("sampler", "exact", "accuracy", "batches", "request_size",
+              "batch", "avg_batch_occupancy", "grow_events", "timeouts",
+              "rejected"):
         assert out[k] == ref[k], k
     assert out["backend"] == "eager"
     assert out["sampler"] == (sampler or "full")
     assert out["exact"] is (sampler is None)
+    assert out["request_size"] == (64 if sampler is None else 32)
+
+
+@pytest.mark.parametrize("trace,size", [("zipf", 256), ("scan", 100),
+                                        ("scan", 0)])
+def test_gnn_trace_matches_the_reference(dsets, trace, size):
+    """The port's request stream takes the reference's flags and draws
+    the reference's seeds: numpy's generator at seed + 7, the same Zipf
+    weights over the validation ids, the same scan windows."""
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as tserve
+    dj, dt = dsets
+    flags = ["--workload", "gnn", "--batch", "256", "--requests", "5",
+             "--seed", "3", "--trace", trace, "--zipf-a", "1.1",
+             "--request-size", str(size)]
+    targs = tserve.parser().parse_args(flags)
+    jargs = argparse.Namespace(batch=256, requests=5, seed=3, trace=trace,
+                               zipf_a=1.1, request_size=size)
+    want = jserve._gnn_trace(jargs, dj)
+    got = tserve.gnn_trace(targs, dt)
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert 0 < len(a) <= (size or 256)   # a scan stops at the ids' end
+        np.testing.assert_array_equal(a, b)
+    if trace == "zipf":   # skewed: repeats within a request
+        assert len(np.unique(got[0])) < len(got[0])
 
 
 @pytest.mark.parametrize("sampler", ["ns", "labor-1", "labor-*", "labor-d",
