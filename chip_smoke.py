@@ -32,7 +32,10 @@ error exits non-zero:
      computing the same function, where there is one (none computes a
      segment softmax). Compact against ``torch.nonzero`` and B7's search
      against ``torch.searchsorted`` are then timed again on the same
-     inputs, ``TRIAL_ROUNDS`` rounds in turn, all rounds printed;
+     inputs, ``TRIAL_ROUNDS`` rounds in turn, all rounds printed, each
+     as event ms (back-to-back calls between CUDA events), device ms
+     and operations (torch.profiler over the same calls) and enqueue ms
+     (a host clock over them with no sync), then each call's device ms;
   3. serve: ``--requests`` requests through ``repro_torch.launch.serve``'s
      synchronous path on products at ``--scale`` (0.25: 612,257
      vertices) with the paper's widths (100 features, hidden 256, 47
@@ -132,7 +135,7 @@ FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 # three products that keep an fp32 product near fp32 (B9)
 TF32X3_FLOP_PER_S = 495e12 / 3
 #: rounds of the compact-vs-nonzero and B7-vs-searchsorted timings
-TRIAL_ROUNDS = 3
+TRIAL_ROUNDS = 5
 INT_MAX = 2**31 - 1
 DEV = "cuda"
 WGRAD_PATH = "aggregate backward, weights requiring a gradient"
@@ -459,20 +462,82 @@ def adversarial(fk, fr, sk, sr):
     emit({"phase": "kernels", "adversarial_cases": cases, "ok": True})
 
 
+def enqueue_ms(fn, reps):
+    """Host clock over ``reps`` calls with no sync in between, per call:
+    the time the host takes to enqueue one call (all of it for a call
+    that reads the device, as ``torch.nonzero`` does)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def device_ms(fns, reps):
+    """torch.profiler over ``reps`` calls of each of ``fns``: the summed
+    device time of their own device operations (kernels, copies,
+    memsets) per call, and the number of those operations per call,
+    each summed over ``fns``; (None, None) where the profiler saw no
+    device event (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        return None, None
+    return (sum(r[0] for r in rows) / 1e3 / reps,
+            sum(r[2] for r in rows) / reps)
+
+
+def split_ms(fns, reps):
+    """Per call, summed over ``fns``: CUDA-event ms of back-to-back calls
+    (``cuda_ms``), device ms and device operations (``device_ms``), and
+    enqueue ms (``enqueue_ms``)."""
+    dev, ops = device_ms(fns, reps)
+    return {"event_ms": sum(cuda_ms(f, reps) for f in fns),
+            "device_ms": dev, "device_ops": ops,
+            "enqueue_ms": sum(enqueue_ms(f, reps) for f in fns)}
+
+
 def phase_trials(trials, reps):
     """Compact against ``torch.nonzero`` and B7's search against
     ``torch.searchsorted`` on the same real inputs, ``TRIAL_ROUNDS``
-    rounds in turn (kernel, library) in one run: each round's time is the
-    sum over the calls of phase 2, ``reps`` launches each."""
+    rounds in turn (kernel, library) in one run. Each round gives, for
+    both sides, the event, device and enqueue ms of ``split_ms``, summed
+    over the calls of phase 2 (``reps`` launches each): the event ms is
+    the larger of the device's and the host's pace, and the split says
+    which one it is. Then each call's device ms alone, in phase 2's
+    order."""
     for name, pairs in trials.items():
-        kernel_ms, library_ms = [], []
+        rounds = {"kernel": [], "library": []}
         for _ in range(TRIAL_ROUNDS):
-            kernel_ms.append(sum(cuda_ms(k, reps) for k, _ in pairs))
-            library_ms.append(sum(cuda_ms(lib, reps) for _, lib in pairs))
-        emit({"phase": "kernels", "trial": name, "calls": len(pairs),
-              "kernel_ms": kernel_ms, "library_ms": library_ms,
-              "kernel_faster_in": sum(a < b for a, b in zip(kernel_ms,
-                                                            library_ms))})
+            for side, fns in (("kernel", [k for k, _ in pairs]),
+                              ("library", [lib for _, lib in pairs])):
+                rounds[side].append(split_ms(fns, reps))
+        out = {"phase": "kernels", "trial": name, "calls": len(pairs),
+               "rounds": TRIAL_ROUNDS}
+        for side, rs in rounds.items():
+            for key in rs[0]:
+                out[f"{side}_{key}"] = [r[key] for r in rs]
+        for side, i in (("kernel", 0), ("library", 1)):
+            out[f"{side}_device_ms_by_call"] = [
+                device_ms([pair[i]], reps)[0] for pair in pairs]
+        for key in ("event_ms", "device_ms", "enqueue_ms"):
+            out[f"kernel_faster_in_{key[:-3]}"] = sum(
+                a < b for a, b in zip(out[f"kernel_{key}"],
+                                      out[f"library_{key}"])
+                if a is not None and b is not None)
+        emit(out)
 
 
 def counters():
@@ -1398,6 +1463,22 @@ def phase_profile(engine, data, model, seeds, key):
     emit({"phase": "profile", "window_requests": n_req, **window})
 
 
+def device_rows(prof):
+    """(self device us, name, count) of each of the device's own events
+    (kernels, copies, memsets) in a finished profile; an operator's
+    device time repeats its kernels' and is left out."""
+    from torch.autograd import DeviceType
+    rows = []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        rows.append((us, evt.key, evt.count))
+    return rows
+
+
 def profile_window(run, n, share_of=None):
     """torch.profiler over ``run(0) .. run(n - 1)``: the window's
     elapsed time, the device's busy time and operations per call, its
@@ -1409,7 +1490,6 @@ def profile_window(run, n, share_of=None):
     slows the launches, so the idle share is an upper estimate of the
     unprofiled one. No device events -> busy and idle are not measured
     (None)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1419,15 +1499,7 @@ def profile_window(run, n, share_of=None):
             run(i)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    rows = []   # the device's own events (kernels, copies, memsets): an
-    # operator's device time repeats its kernels' and is left out
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        rows.append((us, evt.key, evt.count))
+    rows = device_rows(prof)
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     out = {}

@@ -13,10 +13,11 @@
 // arithmetic to speak of, so they are bound by bytes (device memory at
 // 3.35 TB/s) and, at the serving path's sizes (10^4 - 10^6 live elements),
 // by launch and synchronisation latency. The TPU kernels ran one grid step
-// over a VMEM-resident buffer; here the work is spread over thread blocks,
-// and every cross-block dependency (a running count, a digit offset) is a
-// separate pass over a small array of per-tile counts instead of a carry
-// between sequential grid steps.
+// over a VMEM-resident buffer; here the work is spread over thread blocks.
+// compact carries its running count between tiles in one pass (a chained
+// scan with decoupled look-back, one launch); the radix sort's digit
+// offsets and hash_dedup's counts are separate passes over small arrays
+// of per-tile counts.
 //
 // Work is bounded by the real count, not the cap: every kernel reads the
 // live length from device memory (n_live, or a count an earlier kernel
@@ -109,80 +110,258 @@ __device__ void scan_inplace(int* a, int n, int* total_out) {
 
 // ---------------------------------------------------------------------------
 // compact: sel[c] = index of the c-th set flag (0 past the end), emask, num.
-// Three passes over tiles of 4096 flags: per-tile counts (ballot/popc), one
-// scan of the tile counts, then each tile writes its set indices at their
-// ranks, in order (ballot prefix within a warp, warp prefix within a round,
-// rounds in order), so the output keeps arrival order by construction.
+// One launch, one pass over the live flags: a chained scan with decoupled
+// look-back (Merrill and Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", 2016) over tiles of 16,384 flags. Chosen over a
+// cooperative launch with grid.sync(): that would cap the grid at what is
+// resident and make every block wait for the slowest, where here a tile
+// waits only for the prefix of the tiles before it.
+//
+//  * Each block takes its tile from an atomic ticket, so tile t is only
+//    ever waited on by blocks that took their tickets after a running
+//    block took t: no block order is assumed and no wait can deadlock.
+//  * A tile counts its set flags (16-byte loads, one 32-bit mask a
+//    thread) and publishes the count twice: as its aggregate word, and as
+//    its status word, which it then walks back from over its
+//    predecessors' status words, 32 at a time by one warp, until it meets
+//    an inclusive prefix, and upgrades to its own inclusive prefix. A word
+//    is one 64-bit store: epoch (30 bits) | flag (aggregate or prefix) |
+//    count (32 bits). The wrapper passes a new epoch every call (a call
+//    counter), so the words of earlier calls read as not ready and no
+//    memset runs between calls; it zeroes the words once when the counter
+//    wraps. The ticket word is tagged the same way: epoch (high half) |
+//    count (low half). A block that finds an earlier epoch's ticket
+//    raises it to (epoch, 0) with atomicMax before it takes a number, so
+//    the ticket needs no reset by the call before, and a call whose
+//    launch failed leaves nothing behind.
+//  * The tile then ranks its flags (a block scan of the per-thread
+//    counts; each thread's flags are contiguous, so ranks keep arrival
+//    order) and writes sel and emask = 1 at its ranks below cap, a warp
+//    writing one thread's flags at a time so that each store covers
+//    consecutive ranks.
+//  * The blocks past the last live tile fill the tail with sel = 0,
+//    emask = 0: the slots [min(n_live, cap), cap) at once (they are past
+//    every set flag), then, once every live tile's aggregate word is in
+//    and their sum gives num, the slots [num, min(n_live, cap)). The
+//    aggregates come right after each tile's count, so the fill does not
+//    wait for the chain of prefixes. Every tile is owned by a running
+//    block by then, so the wait ends. The first fill block writes num.
+//
+// So one device operation per call, and the work is bounded by the live
+// count read on the device. What bounds it: reading the live flags (1
+// byte each) and writing sel and emask over the whole cap (5 bytes a
+// slot), ~14 us at the layer-2 edge compaction's 9.4 M slots; at the
+// serving path's smaller sizes, the launch itself.
 // ---------------------------------------------------------------------------
 
-constexpr int kCompactItems = 16;
-constexpr int kCompactTile = kThreads * kCompactItems;
+constexpr int kCThreads = 512;
+constexpr int kCompactItems = 32;                        // flags a thread
+constexpr int kCompactTile = kCThreads * kCompactItems;  // flags a tile
+constexpr int kFillSlots = 16384;     // cap slots per fill block
+constexpr int kFillBlocksMax = 528;   // 4 a SM
+constexpr unsigned long long kAggregate = 1, kPrefix = 2;
 
-__global__ void compact_count(const uint8_t* flags, int E, const int* n_live,
-                              int* tile_counts) {
-  const int n = live_count(n_live, E);
-  const long base = (long)blockIdx.x * kCompactTile;
-  if (base >= n) return;
+// Fill blocks of a call: a function of cap alone, so the host sizes the
+// grid with it and the device finds the same number.
+__host__ __device__ inline int compact_fill_blocks(int cap) {
+  const long f = ((long)cap + kFillSlots - 1) / kFillSlots;
+  return f < 1 ? 1 : (f > kFillBlocksMax ? kFillBlocksMax : (int)f);
+}
+
+__device__ __forceinline__ unsigned long long status_word(
+    unsigned epoch, unsigned long long flag, int count) {
+  return ((unsigned long long)epoch << 34) | (flag << 32) | (unsigned)count;
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// This epoch's flag in a word (0: not ready, or an earlier call's).
+__device__ __forceinline__ unsigned status_flag(unsigned long long w,
+                                                unsigned epoch) {
+  return (w >> 34) == epoch ? (unsigned)(w >> 32) & 3u : 0u;
+}
+
+// Warp 0 of tile t (t > 0), after the tile's status word holds its
+// aggregate: look back to the nearest inclusive prefix and publish the
+// tile's own; returns the exclusive prefix (to every lane).
+__device__ int compact_lookback(unsigned long long* status, int t, int agg,
+                                unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  int excl = 0;
+  for (int end = t;; end -= 32) {       // window: tiles end - 1 .. end - 32
+    const int idx = end - 1 - lane;
+    unsigned long long w = 0;
+    unsigned flag;
+    for (;;) {
+      w = idx >= 0 ? ld_relaxed(status + idx)
+                   : status_word(epoch, kPrefix, 0);
+      flag = status_flag(w, epoch);
+      if (__all_sync(kFull, flag != 0)) break;
+      __nanosleep(32);
+    }
+    const unsigned prefixes = __ballot_sync(kFull, flag == kPrefix);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    int c = lane <= stop ? (int)(unsigned)w : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(kFull, c, o);
+    excl += c;
+    if (prefixes) break;
+  }
+  if (lane == 0)
+    st_relaxed(status + t, status_word(epoch, kPrefix, excl + agg));
+  return excl;
+}
+
+// Warp 0 of a fill block: the sum of the live tiles' aggregate words,
+// waiting for each (to every lane).
+__device__ int compact_total(const unsigned long long* aggs, int tiles,
+                             unsigned epoch) {
+  const int lane = threadIdx.x & 31;
   int c = 0;
-  for (int i = 0; i < kCompactItems; ++i) {
-    const long e = base + (long)i * kThreads + threadIdx.x;
-    c += (e < n && flags[e]) ? 1 : 0;
+  for (int t = lane; t < tiles; t += 32) {
+    unsigned long long w;
+    while (status_flag(w = ld_relaxed(aggs + t), epoch) == 0)
+      __nanosleep(64);
+    c += (int)(unsigned)w;
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(kFull, c, o);
-  __shared__ int s[kWarps];
-  if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = c;
-  __syncthreads();
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(kFull, c, o);
+  return c;
+}
+
+// sel = 0, emask = 0 over the slots [lo, hi), block `rank` of `ranks`
+// taking every ranks-th run of 4 * kCThreads slots (16-byte stores of
+// sel, 4-byte of emask where both are aligned).
+__device__ void compact_zero(int* sel, uint8_t* emask, long lo, long hi,
+                             int rank, int ranks) {
+  if (lo >= hi) return;
+  const long first = (long)rank * kCThreads + threadIdx.x;
+  const long stride = (long)ranks * kCThreads;
+  const bool vec = ((uintptr_t)sel & 15) == 0 && ((uintptr_t)emask & 3) == 0;
+  long a = hi, b = hi;                   // the aligned middle [a, b)
+  if (vec) {
+    a = (lo + 3) & ~3L;
+    b = hi & ~3L;
+    if (a > b) a = b = hi;
+  }
+  for (long c = lo + first; c < a; c += stride) {
+    sel[c] = 0;
+    emask[c] = 0;
+  }
+  for (long q = a / 4 + first; q < b / 4; q += stride) {
+    reinterpret_cast<int4*>(sel)[q] = make_int4(0, 0, 0, 0);
+    reinterpret_cast<uint32_t*>(emask)[q] = 0;
+  }
+  for (long c = b + first; c < hi; c += stride) {
+    sel[c] = 0;
+    emask[c] = 0;
+  }
+}
+
+// This thread's kCompactItems flags from e0 on, as a mask (bit i: flag
+// e0 + i set and e0 + i < n).
+__device__ __forceinline__ unsigned compact_bits(const uint8_t* flags,
+                                                 long e0, int n) {
+  unsigned bits = 0;
+  if (e0 + kCompactItems <= n && ((uintptr_t)flags & 15) == 0) {
+    const uint4* v = reinterpret_cast<const uint4*>(flags + e0);
+    const uint4 x = __ldg(v), y = __ldg(v + 1);
+    const unsigned words[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      const unsigned m = __vcmpne4(words[w], 0u);   // 0xff a set byte
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        bits |= ((m >> (8 * k + 7)) & 1u) << (4 * w + k);
+    }
+  } else {
+    for (int i = 0; i < kCompactItems; ++i) {
+      const long e = e0 + i;
+      if (e < n && flags[e]) bits |= 1u << i;
+    }
+  }
+  return bits;
+}
+
+// scratch: the ticket, then `tiles` status words, then `tiles` aggregate
+// words (tiles = the grid's tile count, ceil(E / kCompactTile)).
+__global__ void __launch_bounds__(kCThreads)
+compact_kernel(const uint8_t* __restrict__ flags, int E,
+               const int* __restrict__ n_live, int cap,
+               int* __restrict__ sel, uint8_t* __restrict__ emask,
+               int* __restrict__ num, unsigned long long* scratch, int tiles,
+               unsigned epoch) {
+  __shared__ int s_tile, s_excl;
+  unsigned long long* status = scratch + 1;
+  unsigned long long* aggs = status + tiles;
+  const int n = live_count(n_live, E);
+  const int live_tiles = (int)(((long)n + kCompactTile - 1) / kCompactTile);
   if (threadIdx.x == 0) {
-    int t = 0;
-    for (int w = 0; w < kWarps; ++w) t += s[w];
-    tile_counts[blockIdx.x] = t;
+    // epochs rise call by call on a stream, so once one block has raised
+    // the ticket to this epoch, a later raise changes nothing
+    const unsigned long long base = (unsigned long long)epoch << 32;
+    if (ld_relaxed(scratch) < base) atomicMax(scratch, base);
+    s_tile = (int)(unsigned)atomicAdd(scratch, 1ull);
   }
-}
+  __syncthreads();
+  const int t = s_tile;
 
-__global__ void compact_scan(int* tile_counts, int E, const int* n_live,
-                             int* num) {
-  const int n = live_count(n_live, E);
-  scan_inplace(tile_counts, (n + kCompactTile - 1) / kCompactTile, num);
-}
+  if (t >= live_tiles) {                  // a fill block
+    const int rank = t - live_tiles, ranks = compact_fill_blocks(cap);
+    if (rank >= ranks) return;
+    const long live_end = n < cap ? n : cap;
+    compact_zero(sel, emask, live_end, cap, rank, ranks);
+    if (threadIdx.x < 32) {
+      const int total = compact_total(aggs, live_tiles, epoch);
+      if (threadIdx.x == 0) {
+        s_excl = total;
+        if (rank == 0) *num = total;
+      }
+    }
+    __syncthreads();
+    compact_zero(sel, emask, s_excl < cap ? s_excl : cap, live_end, rank,
+                 ranks);
+    return;
+  }
 
-__global__ void compact_scatter(const uint8_t* flags, int E,
-                                const int* n_live, const int* tile_offsets,
-                                int cap, int* sel) {
-  const int n = live_count(n_live, E);
-  const long base = (long)blockIdx.x * kCompactTile;
-  if (base >= n) return;
-  __shared__ int s_warp[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long e0 = (long)t * kCompactTile + (long)threadIdx.x * kCompactItems;
+  const unsigned bits = compact_bits(flags, e0, n);
+  int agg;
+  const int before = block_exclusive_scan<kCThreads>(__popc(bits), &agg);
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      st_relaxed(aggs + t, status_word(epoch, kAggregate, agg));
+      st_relaxed(status + t, status_word(epoch, t == 0 ? kPrefix : kAggregate,
+                                         agg));
+    }
+    const int excl = t == 0 ? 0 : compact_lookback(status, t, agg, epoch);
+    if (threadIdx.x == 0) s_excl = excl;
+  }
+  __syncthreads();
+  // the warp writes each lane's flags in turn, lane i taking flag i: the
+  // ranks of one lane's flags are contiguous, so each store is coalesced
+  const int lane = threadIdx.x & 31;
   const unsigned lt = lanemask_lt();
-  int running = tile_offsets[blockIdx.x];
-  for (int i = 0; i < kCompactItems; ++i) {
-    const long e = base + (long)i * kThreads + threadIdx.x;
-    const bool f = e < n && flags[e];
-    const unsigned b = __ballot_sync(kFull, f);
-    if (lane == 0) s_warp[warp] = __popc(b);
-    __syncthreads();
-    int before = 0, round_total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = s_warp[w];
-      before += w < warp ? c : 0;
-      round_total += c;
+  const int rank0 = s_excl + before;
+  for (int src = 0; src < 32; ++src) {
+    const unsigned b = __shfl_sync(kFull, bits, src);
+    const int r = __shfl_sync(kFull, rank0, src) + __popc(b & lt);
+    if ((b >> lane) & 1u && r < cap) {
+      sel[r] = (int)(e0 - (long)(lane - src) * kCompactItems + lane);
+      emask[r] = 1;
     }
-    if (f) {
-      const int rank = running + before + __popc(b & lt);
-      if (rank < cap) sel[rank] = (int)e;
-    }
-    running += round_total;
-    __syncthreads();
-  }
-}
-
-__global__ void compact_fill(int cap, const int* num, int* sel,
-                             uint8_t* emask) {
-  const int m = *num < cap ? *num : cap;
-  GRID_STRIDE(c, cap) {
-    if (c >= m) sel[c] = 0;
-    emask[c] = c < m ? 1 : 0;
   }
 }
 
@@ -469,23 +648,27 @@ __global__ void dedup_lookup(const int* values, const uint8_t* vmask, int E,
 
 }  // namespace
 
+// compact: one launch of tiles(E) + compact_fill_blocks(cap) blocks.
+// scratch: 1 + 2 * tiles(E) words, zero or left by earlier calls on this
+// stream with lower epochs (1 <= epoch < 2^30, rising call by call; see
+// the compact section).
 extern "C" int frontier_compact(const uint8_t* flags, int E,
                                 const int* n_live, int cap, int* sel,
-                                uint8_t* emask, int* num, int* tile_counts,
+                                uint8_t* emask, int* num,
+                                unsigned long long* scratch, unsigned epoch,
                                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (E + kCompactTile - 1) / kCompactTile;
-  if (tiles > 0)
-    compact_count<<<tiles, kThreads, 0, st>>>(flags, E, n_live, tile_counts);
-  compact_scan<<<1, 1024, 0, st>>>(tile_counts, E, n_live, num);
-  if (tiles > 0)
-    compact_scatter<<<tiles, kThreads, 0, st>>>(flags, E, n_live, tile_counts,
-                                                cap, sel);
-  if (cap > 0)
-    compact_fill<<<grid_for(cap, kThreads), kThreads, 0, st>>>(cap, num, sel,
-                                                               emask);
+  if (E < 0 || cap < 0 || epoch == 0 || epoch >= (1u << 30))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (int)(((long)E + kCompactTile - 1) / kCompactTile);
+  compact_kernel<<<tiles + compact_fill_blocks(cap), kCThreads, 0,
+                   (cudaStream_t)stream>>>(flags, E, n_live, cap, sel, emask,
+                                           num, scratch, tiles, epoch);
   return (int)cudaGetLastError();
 }
+
+// Flags a tile; kernels/frontier/ops.py's _COMPACT_TILE must equal it (a
+// card test checks).
+extern "C" int frontier_compact_tile() { return kCompactTile; }
 
 extern "C" int frontier_compact_perm(const int* keys, const uint8_t* valid,
                                      int E, const int* n_live, int num_keys,

@@ -34,15 +34,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 #: C signatures: name -> (library, argtypes)
 SIGNATURES = {
-    "frontier_compact": ("frontier", [_P, _I, _P, _I, _P, _P, _P, _P, _P]),
+    "frontier_compact": ("frontier", [_P, _I, _P, _I, _P, _P, _P, _P, _U,
+                                      _P]),
+    "frontier_compact_tile": ("frontier", []),
     "frontier_compact_perm": ("frontier", [_P, _P, _I, _P, _I, _I, _P, _P,
                                            _P, _P, _P, _P, _P, _P]),
     "frontier_hash_dedup": ("frontier", [_P, _P, _I, _P, _P, _I, _I, _I,
                                          _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P, _P, _P, _P]),
     "frontier_cdf_search": ("search", [_P, _I, _P, _I, _P, _P]),
+    "frontier_search_group": ("search", []),
     "frontier_segment_select": ("select", [_P, _P, _I, _P, _P, _P, _I, _P,
                                            _P, _P, _P]),
     "spmm_rows": ("spmm", [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P,
@@ -57,6 +61,7 @@ SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[str, object] = {}
 #: nvcc's -Xptxas -v report of each library built by this process
 BUILD_LOG: Dict[str, str] = {}
 
@@ -134,7 +139,10 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def function(fn: str):
-    return getattr(library(SIGNATURES[fn][0]), fn)
+    f = _FUNCS.get(fn)
+    if f is None:
+        f = _FUNCS[fn] = getattr(library(SIGNATURES[fn][0]), fn)
+    return f
 
 
 def check(status: int, fn: str) -> None:

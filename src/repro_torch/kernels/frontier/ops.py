@@ -12,7 +12,8 @@ TPU variants are held to the same contract.
 
 On a CPU tensor each wrapper runs the plain version in ``ref.py``; on a
 CUDA tensor it checks device, dtype, shape and contiguity, allocates
-outputs and scratch at the static caps (no host sync sizes anything),
+outputs and scratch at the static caps (no host sync sizes anything;
+compact keeps its scratch per stream),
 launches on the current stream, raises if the launch failed, and adds
 one to its entry of :data:`LAUNCHES`. ``n_live`` (an int32 device
 scalar, optional) bounds the work by the real count: entries at index
@@ -20,6 +21,7 @@ scalar, optional) bounds the work by the real count: entries at index
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -32,7 +34,7 @@ from repro_torch.kernels.frontier.ref import DedupResult
 LAUNCHES = {"compact": 0, "hash_dedup": 0, "compact_perm": 0,
             "segment_select": 0, "masked_cdf_draw": 0}
 
-_COMPACT_TILE = 4096   # kThreads * kCompactItems in frontier.cu
+_COMPACT_TILE = 16384  # kCompactTile in frontier.cu (a card test checks)
 _RADIX_TILE = 2048     # kThreads * kRadixItems
 _RADIX = 256
 
@@ -61,30 +63,67 @@ def _check_live(n_live: Optional[torch.Tensor], device) -> None:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream on ``device`` (a CUDA device
+    with its index): ``current_stream(device).cuda_stream`` without
+    building a Stream object on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _i32(n: int, device) -> torch.Tensor:
     return torch.empty(max(n, 1), dtype=torch.int32, device=device)
 
 
+#: compact's scratch per (device, stream): [int64 tensor of the ticket, a
+#: status word and an aggregate word per tile, the last epoch]; grown on
+#: demand, never shared between streams
+_COMPACT_SCRATCH = {}
+_EPOCH_END = 1 << 30   # epochs are 1 .. 2^30 - 1 (30 bits of a word)
+#: held from taking an epoch to the launch, so epochs rise in launch order
+#: on a stream (the kernel's ticket relies on it)
+_COMPACT_LOCK = threading.Lock()
+
+
+def _compact_scratch(dev, stream: int, tiles: int):
+    """The scratch tensor and this call's epoch. A new or grown tensor
+    is zeroed once (epoch 0 is never a call's); when the epoch counter
+    wraps, the words are zeroed once more, so no earlier call's word can
+    carry the current epoch."""
+    key = (dev.index, stream)
+    entry = _COMPACT_SCRATCH.get(key)
+    need = 1 + 2 * tiles
+    if entry is None or entry[0].numel() < need:
+        size = max(need, 0 if entry is None else 2 * entry[0].numel() - 1)
+        entry = [torch.zeros(size, dtype=torch.int64, device=dev), 0]
+        _COMPACT_SCRATCH[key] = entry
+    entry[1] += 1
+    if entry[1] == _EPOCH_END:
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
+
+
 def compact(flags: torch.Tensor, cap: int,
             n_live: Optional[torch.Tensor] = None):
-    """Order-preserving stream compaction (contract: ``ref.compact``)."""
+    """Order-preserving stream compaction (contract: ``ref.compact``):
+    one launch, a single-pass chained scan with decoupled look-back over
+    tiles of the live flags, scratch reused per stream."""
     if flags.device.type == "cpu":
         return ref.compact(flags, cap)
     dev = flags.device
     _check("flags", flags, torch.bool, dev)
     _check_live(n_live, dev)
     E = flags.shape[0]
+    stream = _stream(dev)
     sel = torch.empty(cap, dtype=torch.int32, device=dev)
     emask = torch.empty(cap, dtype=torch.bool, device=dev)
     num = torch.empty((), dtype=torch.int32, device=dev)
-    tile_counts = _i32(-(-E // _COMPACT_TILE), dev)
-    status = _build.function("frontier_compact")(
-        _build.ptr(flags), E, _build.ptr(n_live), cap, _build.ptr(sel),
-        _build.ptr(emask), _build.ptr(num), _build.ptr(tile_counts),
-        _stream(dev))
+    fn = _build.function("frontier_compact")
+    with _COMPACT_LOCK:
+        scratch, epoch = _compact_scratch(dev, stream,
+                                          -(-E // _COMPACT_TILE))
+        status = fn(_build.ptr(flags), E, _build.ptr(n_live), cap,
+                    _build.ptr(sel), _build.ptr(emask), _build.ptr(num),
+                    _build.ptr(scratch), epoch, stream)
     _build.check(status, "frontier_compact")
     LAUNCHES["compact"] += 1
     return sel, emask, num
@@ -201,8 +240,9 @@ def segment_select(keys: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
 
 def cdf_search(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """First index with ``cdf >= u``, clipped into the buffer (contract:
-    ``ref.cdf_search``): one thread per draw, a binary search over the
-    CDF in device memory."""
+    ``ref.cdf_search``): a group of ``ref.SEARCH_G`` (8) lanes per
+    draw, a G-ary search with one ballot a round, the first two rounds'
+    entries staged in shared memory once per block."""
     if cdf.device.type == "cpu":
         return ref.cdf_search(cdf, u)
     dev = cdf.device

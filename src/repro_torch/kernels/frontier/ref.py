@@ -165,12 +165,17 @@ SCAN_ROW = 1024
 
 
 def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive float cumsum of a 1-D tensor in one fixed order: rows of
-    ``SCAN_ROW`` entries are scanned along dim 1, then the row totals by
-    the same function, and added. A multi-row scan is PyTorch's row-scan
-    kernel on the card, whose order is fixed; a 1-D ``torch.cumsum``
-    there is a single-pass scan whose float association depends on
-    timing, so two runs could differ in the last bits."""
+    """Inclusive float cumsum of a non-negative 1-D tensor in one fixed
+    order, non-decreasing: rows of ``SCAN_ROW`` entries are scanned along
+    dim 1, then the row totals by the same function, and added. A
+    multi-row scan is PyTorch's row-scan kernel on the card, whose order
+    is fixed; a 1-D ``torch.cumsum`` there is a single-pass scan whose
+    float association depends on timing, so two runs could differ in the
+    last bits. The carry is summed in another order than each row, so a
+    row could start an ulp below the previous row's end: each row is
+    lifted to the running max of the row ends before it, so that every
+    exact search over the sum (the kernel's G-ary rounds, searchsorted's
+    bisection) finds the same index."""
     C = x.shape[0]
     R = -(-C // SCAN_ROW)
     xp = torch.zeros(max(R, 2) * SCAN_ROW, dtype=x.dtype, device=x.device)
@@ -181,13 +186,16 @@ def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
     rows = rows[:R]
     carry = fixed_order_cumsum(rows[:, -1].contiguous())
     rows[1:] += carry[:-1, None]
+    ends = torch.cummax(rows[:, -1], 0).values
+    rows[1:] = torch.maximum(rows[1:], ends[:-1, None])
     return rows.reshape(-1)[:C]
 
 
 def normalized_cdf(p: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Masked cumulative distribution normalised by its own final value,
-    so that the last entry is exactly 1.0 (or every entry 0 when nothing
-    is valid) and an inverse-CDF draw can never index past the buffer.
+    non-decreasing, so that the last entry is exactly 1.0 (or every entry
+    0 when nothing is valid) and an inverse-CDF draw can never index past
+    the buffer.
     Shared by the kernel and the plain search, so both search the same
     floats."""
     pv = torch.where(valid, torch.clamp(p, min=0.0), 0.0)
@@ -195,19 +203,47 @@ def normalized_cdf(p: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return cdf / torch.clamp(cdf[-1:], min=1e-30)
 
 
+#: lanes per draw of the kernel's search (``kG`` in ``csrc/search.cu``;
+#: a card test checks that the two agree)
+SEARCH_G = 8
+
+
+def search_rounds(C: int) -> int:
+    """Rounds of the ``SEARCH_G``-ary search over a CDF of ``C`` entries:
+    a round leaves at most ceil(len / G) - 1 of ``len`` candidates."""
+    rounds = 0
+    while C > 0:
+        C = -(-C // SEARCH_G) - 1
+        rounds += 1
+    return rounds
+
+
 def cdf_search(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """For each u, the first index i with ``cdf[i] >= u`` (searchsorted
     'left' over a non-decreasing cdf), clipped into [0, C - 1]: int32[n].
-    A lockstep binary search, the arithmetic of the kernel."""
+    The kernel's arithmetic (``csrc/search.cu``), so the two agree on any
+    input: every draw searches [lo, hi) in lockstep; a round splits it
+    into ``SEARCH_G`` chunks of ceil(len / G) entries, probes the last
+    entry of each (a probe past hi - 1 counts as reached), and keeps the
+    first chunk whose probe reaches u, without that probe; no chunk
+    reaching u leaves lo = hi. A NaN u reaches no entry and ends at C,
+    clipped to C - 1."""
     C, n = cdf.shape[0], u.shape[0]
-    lo = torch.zeros(n, dtype=torch.int64, device=u.device)
-    hi = torch.full((n,), C, dtype=torch.int64, device=u.device)
-    for _ in range(C.bit_length()):
-        mid = lo + (hi - lo) // 2
-        ge = cdf[torch.clamp(mid, max=C - 1)] >= u
-        go = lo < hi
-        lo = torch.where(go & ~ge, mid + 1, lo)
-        hi = torch.where(go & ge, mid, hi)
+    dev = u.device
+    lanes = torch.arange(1, SEARCH_G + 1, dtype=torch.int64, device=dev)
+    lo = torch.zeros(n, dtype=torch.int64, device=dev)
+    hi = torch.full((n,), C, dtype=torch.int64, device=dev)
+    for _ in range(search_rounds(C)):
+        step = (hi - lo + SEARCH_G - 1) // SEARCH_G
+        p = lo[:, None] + lanes * step[:, None] - 1
+        reached = (p >= hi[:, None]) | (
+            cdf[torch.clamp(p, 0, C - 1)] >= u[:, None])
+        k = torch.argmax(reached.to(torch.uint8), dim=1)   # first reached
+        go = (lo < hi) & reached.any(1)
+        stop = (lo < hi) & ~go
+        lo, hi = (torch.where(go, lo + k * step, torch.where(stop, hi, lo)),
+                  torch.where(go, torch.minimum(lo + (k + 1) * step - 1, hi),
+                              hi))
     return torch.clamp(lo, 0, C - 1).to(torch.int32)
 
 

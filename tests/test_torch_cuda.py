@@ -64,6 +64,145 @@ def test_frontier_kernels_match_plain(cuda_device, E):
             assert torch.equal(x, y)
 
 
+#: both sides of a warp's 32 flags and of 1, 2, 32 and 33 of compact's
+#: tiles (the look-back walks back 32 tiles a step)
+COMPACT_SIZES = [1, 31, 33] + [k * fk._COMPACT_TILE + d
+                               for k in (1, 2, 32, 33) for d in (-1, 0, 1)]
+
+
+def _compact_equal(flags, cap, live=None):
+    for got, want in zip(fk.compact(flags, cap, live),
+                         fr.compact(flags, cap)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", COMPACT_SIZES)
+def test_compact_single_pass_matches_plain(cuda_device, E):
+    """The one-launch compact bit for bit at tile-boundary sizes: n_live
+    0, half and E (and none), cap 0, below, at and above num, and E."""
+    g = torch.Generator(device=cuda_device).manual_seed(E)
+    flags = torch.rand(E, generator=g, device=cuda_device) < 0.5
+    for n_live in (None, 0, E // 2, E):
+        f = flags.clone()
+        if n_live is not None:
+            f[n_live:] = False
+            live = torch.tensor(n_live, dtype=torch.int32, device=cuda_device)
+        else:
+            live = None
+        num = int(f.sum())
+        for cap in sorted({0, max(num - 1, 0), num, num + 1, E}):
+            _compact_equal(f, cap, live)
+
+
+@pytest.mark.cuda
+def test_compact_at_the_layer2_edge_cap(cuda_device):
+    """E = 9,426,304 slots (LADIES's and LABOR-0's layer-2 cap), ~10%
+    set over a live prefix, cap = E and cap below num."""
+    E = 9_426_304
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    flags = torch.rand(E, generator=g, device=cuda_device) < 0.1
+    for n_live in (E, 5_000_001):
+        flags[n_live:] = False
+        live = torch.tensor(n_live, dtype=torch.int32, device=cuda_device)
+        for cap in (E, 448_384):
+            _compact_equal(flags, cap, live)
+
+
+@pytest.mark.cuda
+def test_compact_repeated_calls_reuse_the_scratch(cuda_device):
+    """50 calls in a row of different sizes on one stream: the cached
+    status words, the per-call epoch and the epoch-tagged ticket."""
+    rng = torch.Generator().manual_seed(9)
+    outs = []
+    for i in range(50):
+        E = int(torch.randint(1, 200_000, (1,), generator=rng))
+        p = float(torch.rand(1, generator=rng))
+        flags = (torch.rand(E, generator=rng) < p).to(cuda_device)
+        live = torch.tensor(int(torch.randint(0, E + 1, (1,), generator=rng)),
+                            dtype=torch.int32, device=cuda_device)
+        flags[int(live):] = False
+        cap = int(torch.randint(0, E + 1, (1,), generator=rng))
+        outs.append((flags, cap, fk.compact(flags, cap, live)))
+    for flags, cap, got in outs:
+        for x, y in zip(got, fr.compact(flags, cap)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_compact_after_a_skipped_epoch_and_the_wrap(cuda_device):
+    """An epoch taken with no launch (as by a launch that failed) leaves
+    the ticket of the call before; the next calls raise it and still
+    match. Then the epoch counter runs past its end and wraps."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(17)
+    key = (dev.index, fk._stream(dev))
+    for E in (200_000, 70_001, 200_000):
+        flags = torch.rand(E, generator=g, device=dev) < 0.4
+        _compact_equal(flags, E // 3)
+        fk._compact_scratch(dev, key[1], -(-E // fk._COMPACT_TILE))
+    fk._COMPACT_SCRATCH[key][1] = fk._EPOCH_END - 3
+    for E in (50_000, 200_000, 33, 120_000, 16_385):
+        flags = torch.rand(E, generator=g, device=dev) < 0.6
+        _compact_equal(flags, E)
+    assert fk._COMPACT_SCRATCH[key][1] == 3
+
+
+@pytest.mark.cuda
+def test_compact_on_two_streams(cuda_device):
+    """Calls interleaved on two streams, each with its own scratch, each
+    result checked."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    inputs = [torch.rand(E, generator=g, device=cuda_device) < 0.3
+              for E in (70_000, 123_457, 9_000, 300_001) * 3]
+    outs = []
+    for i, flags in enumerate(inputs):
+        st = streams[i % 2]
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append((st, fk.compact(flags, flags.shape[0] // 2)))
+    torch.cuda.synchronize()
+    for flags, (st, got) in zip(inputs, outs):
+        for x, y in zip(got, fr.compact(flags, flags.shape[0] // 2)):
+            assert torch.equal(x, y)
+    scratch = [fk._COMPACT_SCRATCH[(0, st.cuda_stream)][0]
+               for st in streams]
+    assert scratch[0].data_ptr() != scratch[1].data_ptr()
+
+
+@pytest.mark.cuda
+def test_wrapper_constants_match_the_kernels(cuda_device):
+    """The tile width the wrapper sizes compact's scratch by, and the
+    lanes per draw the plain search mirrors, are the built kernels'."""
+    from repro_torch.kernels import _build
+    assert fk._COMPACT_TILE == _build.function("frontier_compact_tile")()
+    assert fr.SEARCH_G == _build.function("frontier_search_group")()
+
+
+@pytest.mark.cuda
+def test_compact_is_one_device_operation(cuda_device):
+    """torch.profiler sees one device kernel per compact call, and no
+    memset or copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flags = torch.rand(500_000, device=cuda_device) < 0.2
+    live = torch.tensor(400_000, dtype=torch.int32, device=cuda_device)
+    fk.compact(flags, 100_000, live)
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(7):
+            fk.compact(flags, 100_000, live)
+        torch.cuda.synchronize()
+    ops = [(e.key, e.count) for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    assert fk.LAUNCHES["compact"] == 7
+    assert sum(c for _, c in ops) == 7, ops
+    assert all("compact" in k for k, _ in ops), ops
+
+
 @pytest.fixture(scope="module")
 def served():
     if not torch.cuda.is_available():
@@ -214,6 +353,55 @@ def test_cdf_search_kernel_matches_plain(cuda_device, C, n):
     assert torch.equal(lib, want)
     assert torch.equal(fk.masked_cdf_draw(p, valid, u),
                        fr.masked_cdf_draw(p, valid, u))
+
+
+def _search_probes(C):
+    """Positions of the G-ary search's first two rounds of probes (the
+    entries the kernel stages in shared memory)."""
+    G = fr.SEARCH_G
+    out = []
+    step0 = -(-C // G)
+    for k in range(G):
+        if (k + 1) * step0 - 1 < C:
+            out.append((k + 1) * step0 - 1)
+        lo, hi = k * step0, min((k + 1) * step0 - 1, C)
+        if lo < hi:
+            step1 = -(-(hi - lo) // G)
+            out += list(range(lo + step1 - 1, hi, step1))
+    return torch.tensor(out, dtype=torch.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 7, 8, 9, 31, 32, 33, 63, 64, 65, 511,
+                               512, 513, 1023, 1024, 1025, 4095, 4096, 4097,
+                               32_769, 262_145, 9_426_304])
+def test_cdf_search_gary_adversarial(cuda_device, C):
+    """B7's G-ary search bit for bit against the plain lockstep and
+    clamp(searchsorted): C near powers of 8 and 32, u at every staged probe,
+    a plateau across the first round's probes, NaN and 1.0 in u; then an
+    all-zero CDF of the same length."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(C)
+    cdf = torch.sort(torch.rand(C, generator=g, device=dev)).values
+    cdf[-1] = 1.0
+    probes = _search_probes(C).to(dev)
+    if C > 64:   # one value from before round 0's first probe to past
+        # its third, over round 1's probes between them
+        step0 = -(-C // fr.SEARCH_G)
+        a, b = step0 // 2, 3 * step0 + 3
+        cdf[a:b] = cdf[a]
+        plateau = [cdf[a], cdf[a].nextafter(torch.zeros((), device=dev))]
+    else:
+        plateau = []
+    u = torch.cat([cdf[probes], torch.rand(4096, generator=g, device=dev),
+                   torch.tensor([0.0, 1.0, float("nan"), 2.0, -1.0],
+                                device=dev)] + [x.reshape(1)
+                                                for x in plateau])
+    for c in (cdf, torch.zeros_like(cdf)):
+        want = fr.cdf_search(c, u)
+        assert torch.equal(fk.cdf_search(c, u), want)
+        lib = torch.clamp(torch.searchsorted(c, u), 0, C - 1).to(torch.int32)
+        assert torch.equal(lib, want)
 
 
 @pytest.mark.cuda

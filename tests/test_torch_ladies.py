@@ -7,6 +7,14 @@
     8 x 3e8, 4,096 x 1e-7; u in {0, 0.5, 1 - 1e-7, 1 - 6e-8}, also
     against both Pallas kernels in interpret mode), u = 0 over an
     invalid entry 0, zero-mass plateaus, an all-invalid p, n = 0, C = 1;
+  * the 8-ary lockstep ``ref.cdf_search`` (the kernel's rounds) on
+    repro's CDF floats at C near powers of 8 and 32 against repro's jitted
+    draw and both Pallas draw kernels in interpret mode, bit for bit,
+    and against ``torch.searchsorted`` (clamped) with u at every probed
+    entry of the first two rounds, plateaus across probes, NaN and 1.0,
+    an all-zero CDF;
+  * ``normalized_cdf`` non-decreasing where the fixed-order sum's rows
+    meet over zero mass (the carry used to dip an ulp there);
   * the port's own ``normalized_cdf`` against repro's to rtol 1e-5 /
     atol 1e-7 (float32 cumsums associate differently), and its draws
     equal to repro's except where u lies within that gap of a CDF value
@@ -146,6 +154,129 @@ def test_masked_cdf_draw_matches_reference(name, p, valid, u):
         assert want[0] == 0 and want.tolist() == d_t.tolist()
     if name == "all_invalid":
         assert want.tolist() == [0, 8, 8]
+
+
+#: C near powers of 8 (the kernel's lanes per draw, one to five rounds)
+#: and of 32
+SEARCH_SIZES = [1, 2, 7, 8, 9, 31, 32, 33, 63, 64, 65, 511, 512, 513, 1023,
+                1024, 1025, 4095, 4096, 4097, 32767, 32768, 32769]
+
+
+def _splitters(C):
+    """The positions the G-ary search probes in its first two rounds
+    (the entries the kernel stages in shared memory)."""
+    G = tfr.SEARCH_G
+    out = []
+    step0 = -(-C // G)
+    for k in range(G):
+        p0 = (k + 1) * step0 - 1
+        if p0 < C:
+            out.append(p0)
+        lo, hi = k * step0, min((k + 1) * step0 - 1, C)
+        if lo < hi:
+            step1 = -(-(hi - lo) // G)
+            out += [p for p in range(lo + step1 - 1, hi, step1)]
+    return np.asarray(out, np.int64)
+
+
+@pytest.mark.parametrize("C", SEARCH_SIZES)
+def test_gary_cdf_search_matches_reference_oracles(C):
+    """The G-ary lockstep (``ref.cdf_search``, the kernel's arithmetic)
+    on repro's CDF floats against repro's jitted draw and both Pallas
+    draw kernels in interpret mode, bit for bit: seeded weights with
+    invalid entries, u uniform and u equal to probed entries."""
+    rng = np.random.default_rng(C)
+    p = (rng.random(C) * 10.0 ** rng.integers(-3, 3, size=C)).astype(
+        np.float32)
+    valid = rng.random(C) < 0.7
+    jp, jv = jnp.asarray(p), jnp.asarray(valid)
+    cdf = np.array(_CDF(jp, jv))
+    u = np.concatenate([rng.random(48), cdf[rng.choice(_splitters(C), 16)],
+                        [0.0, 1.0]]).astype(np.float32)
+    ju = jnp.asarray(u)
+    want = np.asarray(_DRAW(jp, jv, ju))
+    for oracle in (jfk.masked_cdf_draw_block(jp, jv, ju, interpret=True),
+                   jpar.masked_cdf_draw_block_parallel(jp, jv, ju,
+                                                       interpret=True)):
+        np.testing.assert_array_equal(np.asarray(oracle), want)
+    got = tfr.cdf_search(torch.as_tensor(cdf), torch.as_tensor(u))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_normalized_cdf_never_dips(seed):
+    """Where rows of the fixed-order sum meet over zero mass, the carry
+    (summed in another order) used to leave an entry an ulp below its
+    predecessor (10 such dips at this size and seed 0); the lifted sum is
+    non-decreasing, stays within CDF_TOL of repro's CDF, and every exact
+    search agrees on it, u at every row boundary included."""
+    rng = np.random.default_rng(seed)
+    C = 100_000
+    p = (rng.random(C) ** 4).astype(np.float32)
+    valid = rng.random(C) < 0.05
+    cdf = tfr.normalized_cdf(torch.as_tensor(p), torch.as_tensor(valid))
+    assert bool((cdf[1:] >= cdf[:-1]).all())
+    np.testing.assert_allclose(cdf.numpy(), np.asarray(
+        _CDF(jnp.asarray(p), jnp.asarray(valid))), **CDF_TOL)
+    edges = torch.arange(tfr.SCAN_ROW - 1, C - 1, tfr.SCAN_ROW)
+    u = torch.cat([cdf[edges], cdf[edges + 1], torch.rand(
+        256, generator=torch.Generator().manual_seed(seed))])
+    want = torch.clamp(torch.searchsorted(cdf, u), 0, C - 1).to(torch.int32)
+    assert torch.equal(tfr.cdf_search(cdf, u), want)
+
+
+def _search_cases():
+    """(name, cdf, u): C near powers of 8 and 32 with u at every probed
+    entry of the first two rounds,
+    plateaus across a probe, NaN and 1.0, an all-zero CDF."""
+    rng = np.random.default_rng(17)
+    out = []
+    for C in SEARCH_SIZES + [1 << 20, (1 << 20) + 1]:
+        cdf = np.sort(rng.random(C)).astype(np.float32)
+        cdf[-1] = 1.0
+        u = np.concatenate([cdf[_splitters(C)], rng.random(64), [0.0]])
+        out.append((f"powers{C}", cdf, u.astype(np.float32)))
+    # one long plateau over the first two rounds' probes, and runs of
+    # equal values across each probe
+    cdf = np.full(40_000, 0.5, np.float32)
+    cdf[:3] = [0.0, 0.1, 0.2]
+    cdf[-5:] = [0.6, 0.7, 0.8, 0.9, 1.0]
+    out.append(("long_plateau", cdf, np.asarray(
+        [0.5, 0.4999999, 0.5000001, 0.2, 0.0, 1.0], np.float32)))
+    cdf = np.repeat(np.linspace(0, 1, 50, dtype=np.float32), 700)
+    out.append(("plateaus_across_probes", cdf,
+                np.concatenate([cdf[::350], rng.random(32)]).astype(
+                    np.float32)))
+    cdf = np.linspace(0, 1, 5000, dtype=np.float32)
+    out.append(("nan_and_one", cdf, np.asarray(
+        [np.nan, 1.0, np.float32(1 - 6e-8), 2.0, -1.0, np.nan], np.float32)))
+    out.append(("all_zero", np.zeros(3000, np.float32),
+                np.asarray([0.0, 1e-9, 0.5, 1.0, np.nan], np.float32)))
+    return out
+
+
+SEARCH_CASES = _search_cases()
+
+
+@pytest.mark.parametrize("name,cdf,u", SEARCH_CASES,
+                         ids=[c[0] for c in SEARCH_CASES])
+def test_gary_cdf_search_matches_searchsorted(name, cdf, u):
+    """The G-ary lockstep against ``torch.searchsorted`` clamped into
+    [0, C - 1] (NaN u goes past the end in both), and the wrapper on a
+    CPU tensor runs it."""
+    tc, tu = torch.as_tensor(cdf), torch.as_tensor(u)
+    want = torch.clamp(torch.searchsorted(tc, tu), 0, len(cdf) - 1).to(
+        torch.int32)
+    got = tfr.cdf_search(tc, tu)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    tfk.reset_launches()
+    assert torch.equal(tfk.cdf_search(tc, tu), want)
+    assert tfk.LAUNCHES["masked_cdf_draw"] == 0       # CPU: plain
+    if name == "nan_and_one":
+        assert got.tolist() == [4999, 4999, 4999, 4999, 0, 4999]
+    if name == "all_zero":
+        assert got.tolist() == [0, 2999, 2999, 2999, 2999]
 
 
 @pytest.mark.parametrize("salt", [0, 7, 0xDEADBEEF])
