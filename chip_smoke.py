@@ -30,8 +30,10 @@ error exits non-zero:
      over 3.35 TB/s or flops over 67 TFLOP/s fp32, whichever is larger,
      counting what these inputs need) and one PyTorch library call
      computing the same function, where there is one (none computes a
-     segment softmax). Compact against ``torch.nonzero`` and B7's search
-     against ``torch.searchsorted`` are then timed again on the same
+     segment softmax). Compact against ``torch.nonzero``, hash_dedup
+     against ``torch.unique`` + ``torch.searchsorted``, compact_perm
+     against a stable ``torch.argsort`` and B7's search against
+     ``torch.searchsorted`` are then timed again on the same
      inputs, ``TRIAL_ROUNDS`` rounds in turn, all rounds printed, each
      as event ms (back-to-back calls between CUDA events), device ms
      and operations (torch.profiler over the same calls) and enqueue ms
@@ -134,7 +136,8 @@ FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 # 3xTF32 on the tensor cores: the dense TF32 rate (495 TFLOP/s) over the
 # three products that keep an fp32 product near fp32 (B9)
 TF32X3_FLOP_PER_S = 495e12 / 3
-#: rounds of the compact-vs-nonzero and B7-vs-searchsorted timings
+#: rounds of phase 2's trials (each kernel in ``trials`` against its
+#: library call)
 TRIAL_ROUNDS = 5
 INT_MAX = 2**31 - 1
 DEV = "cuda"
@@ -250,7 +253,8 @@ class Record:
 def phase_kernels(engine, data, seeds, key, reps, records, trials):
     """Phase 2: every kernel against its plain version at the inputs of
     each layer of one request, then adversarial inputs. Appends each
-    compact call's (kernel, library) pair to ``trials``."""
+    compact, hash_dedup and compact_perm call's (kernel, library) pair
+    to ``trials``."""
     from repro_torch.core.interface import build_block
     from repro_torch.core.labor import layer_inclusion
     from repro_torch.kernels.frontier import ops as fk
@@ -306,10 +310,13 @@ def phase_kernels(engine, data, seeds, key, reps, records, trials):
             u = torch.unique(torch.cat([s, torch.where(mask, values, -1)]))
             return torch.searchsorted(u, values)
 
+        pair = (lambda args=args, live=live: fk.hash_dedup(*args, live),
+                unique_lookup)
+        trials["hash_dedup"].append(pair)
         t = records["hash_dedup"].add(
-            cuda_ms(lambda: fk.hash_dedup(*args, live), reps),
+            cuda_ms(pair[0], reps),
             cuda_ms(lambda: fr.hash_dedup(*args), reps),
-            cuda_ms(unique_lookup, reps),
+            cuda_ms(pair[1], reps),
             nbytes=n * 5 + S * 4 + new_cap * 4 + E * 4 + 5)
         emit({"phase": "kernels", "kernel": "hash_dedup", "layer": layer,
               "E": E, "S": S, "new_cap": new_cap, "live": n,
@@ -321,10 +328,13 @@ def phase_kernels(engine, data, seeds, key, reps, records, trials):
         torch.cuda.synchronize()
         same(f"compact_perm layer {layer}", got, want)
         keyed = torch.where(blk.edge_mask, blk.src_slot, caps.vertex_cap)
+        pair = (lambda pargs=pargs, live=live: fk.compact_perm(*pargs, live),
+                lambda keyed=keyed: torch.argsort(keyed, stable=True))
+        trials["compact_perm"].append(pair)
         t = records["compact_perm"].add(
-            cuda_ms(lambda: fk.compact_perm(*pargs, live), reps),
+            cuda_ms(pair[0], reps),
             cuda_ms(lambda: fr.compact_perm(*pargs), reps),
-            cuda_ms(lambda: torch.argsort(keyed, stable=True), reps),
+            cuda_ms(pair[1], reps),
             nbytes=n * 5 + E * 4)
         emit({"phase": "kernels", "kernel": "compact_perm", "layer": layer,
               "E": E, "K": caps.vertex_cap, "live": n, **t})
@@ -510,14 +520,16 @@ def split_ms(fns, reps):
 
 
 def phase_trials(trials, reps):
-    """Compact against ``torch.nonzero`` and B7's search against
-    ``torch.searchsorted`` on the same real inputs, ``TRIAL_ROUNDS``
-    rounds in turn (kernel, library) in one run. Each round gives, for
-    both sides, the event, device and enqueue ms of ``split_ms``, summed
-    over the calls of phase 2 (``reps`` launches each): the event ms is
-    the larger of the device's and the host's pace, and the split says
-    which one it is. Then each call's device ms alone, in phase 2's
-    order."""
+    """Each kernel of ``trials`` against its library call (compact:
+    ``torch.nonzero``; hash_dedup: ``torch.unique`` +
+    ``torch.searchsorted``; compact_perm: a stable ``torch.argsort``; B7's
+    search: ``torch.searchsorted``) on the same real inputs,
+    ``TRIAL_ROUNDS`` rounds in turn (kernel, library) in one run. Each
+    round gives, for both sides, the event, device and enqueue ms of
+    ``split_ms``, summed over the calls of phase 2 (``reps`` launches
+    each): the event ms is the larger of the device's and the host's
+    pace, and the split says which one it is. Then each call's device ms
+    alone, in phase 2's order."""
     for name, pairs in trials.items():
         rounds = {"kernel": [], "library": []}
         for _ in range(TRIAL_ROUNDS):
@@ -1905,7 +1917,8 @@ def main():
             "edge_softmax", "cuda", "src/repro_torch/csrc/edge_softmax.cu",
             "src/repro/kernels/edge_softmax/edge_softmax.py:42"),
     }
-    trials = {"compact": [], "masked_cdf_draw": []}
+    trials = {"compact": [], "hash_dedup": [], "compact_perm": [],
+              "masked_cdf_draw": []}
     phase_kernels(engine, data, seeds0, key0, opts.reps, records, trials)
 
     # the first training batch of the launcher's run, for NS, LADIES and

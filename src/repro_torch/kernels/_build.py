@@ -41,10 +41,12 @@ SIGNATURES = {
                                       _P]),
     "frontier_compact_tile": ("frontier", []),
     "frontier_compact_perm": ("frontier", [_P, _P, _I, _P, _I, _I, _P, _P,
-                                           _P, _P, _P, _P, _P, _P]),
-    "frontier_hash_dedup": ("frontier", [_P, _P, _I, _P, _P, _I, _I, _I,
-                                         _P, _P, _P, _P, _P, _P, _P, _P,
-                                         _P, _P, _P, _P]),
+                                           _L, _P, _L, _U, _P]),
+    "frontier_hash_dedup": ("frontier", [_P, _P, _I, _P, _P, _I, _I, _P,
+                                         _P, _P, _P, _P, _L, _P, _L, _P, _L,
+                                         _U, _P]),
+    "frontier_sort_tile": ("frontier", []),
+    "frontier_digit_bits": ("frontier", []),
     "frontier_cdf_search": ("search", [_P, _I, _P, _I, _P, _P]),
     "frontier_search_group": ("search", []),
     "frontier_segment_select": ("select", [_P, _P, _I, _P, _P, _P, _I, _P,

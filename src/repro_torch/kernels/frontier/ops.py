@@ -11,13 +11,13 @@ grid-parallel ``compact_tiles_kernel``/``dedup_tiles_kernel``/
 TPU variants are held to the same contract.
 
 On a CPU tensor each wrapper runs the plain version in ``ref.py``; on a
-CUDA tensor it checks device, dtype, shape and contiguity, allocates
-outputs and scratch at the static caps (no host sync sizes anything;
-compact keeps its scratch per stream),
-launches on the current stream, raises if the launch failed, and adds
-one to its entry of :data:`LAUNCHES`. ``n_live`` (an int32 device
-scalar, optional) bounds the work by the real count: entries at index
->= n_live must be masked, and the kernels stop there.
+CUDA tensor it checks device, dtype, shape and contiguity, allocates its
+outputs at the static caps (no host sync sizes anything; compact,
+compact_perm and hash_dedup take their scratch from :func:`_scratch`,
+cached per stream), launches on the current stream, raises if the launch
+failed, and adds one to its entry of :data:`LAUNCHES`. ``n_live`` (an
+int32 device scalar, optional) bounds the work by the real count:
+entries at index >= n_live must be masked, and the kernels stop there.
 """
 from __future__ import annotations
 
@@ -34,9 +34,12 @@ from repro_torch.kernels.frontier.ref import DedupResult
 LAUNCHES = {"compact": 0, "hash_dedup": 0, "compact_perm": 0,
             "segment_select": 0, "masked_cdf_draw": 0}
 
-_COMPACT_TILE = 16384  # kCompactTile in frontier.cu (a card test checks)
-_RADIX_TILE = 2048     # kThreads * kRadixItems
-_RADIX = 256
+# constants of frontier.cu (a card test checks the first three)
+_COMPACT_TILE = 16384  # kCompactTile: flags a compact tile
+_SORT_TILE = 4096      # kSortTile: keys a radix-sort tile
+_DIGIT_BITS = 8        # kDigitBits: bits a radix-sort pass
+_RADIX = 1 << _DIGIT_BITS
+_MAX_PASSES = 4        # kMaxPasses: 32-bit keys
 
 
 def reset_launches() -> None:
@@ -73,33 +76,65 @@ def _i32(n: int, device) -> torch.Tensor:
     return torch.empty(max(n, 1), dtype=torch.int32, device=device)
 
 
-#: compact's scratch per (device, stream): [int64 tensor of the ticket, a
-#: status word and an aggregate word per tile, the last epoch]; grown on
-#: demand, never shared between streams
-_COMPACT_SCRATCH = {}
+#: scratch per (kernel, device index, stream): [list of int64 tensors, the
+#: last epoch]; each tensor grown on demand, never shared between kernels
+#: or streams
+_SCRATCH = {}
 _EPOCH_END = 1 << 30   # epochs are 1 .. 2^30 - 1 (30 bits of a word)
 #: held from taking an epoch to the launch, so epochs rise in launch order
-#: on a stream (the kernel's ticket relies on it)
-_COMPACT_LOCK = threading.Lock()
+#: on a stream (the kernels' tickets and tagged words rely on it)
+_SCRATCH_LOCK = threading.Lock()
 
 
-def _compact_scratch(dev, stream: int, tiles: int):
-    """The scratch tensor and this call's epoch. A new or grown tensor
-    is zeroed once (epoch 0 is never a call's); when the epoch counter
-    wraps, the words are zeroed once more, so no earlier call's word can
-    carry the current epoch."""
-    key = (dev.index, stream)
-    entry = _COMPACT_SCRATCH.get(key)
-    need = 1 + 2 * tiles
-    if entry is None or entry[0].numel() < need:
-        size = max(need, 0 if entry is None else 2 * entry[0].numel() - 1)
-        entry = [torch.zeros(size, dtype=torch.int64, device=dev), 0]
-        _COMPACT_SCRATCH[key] = entry
+def _scratch(kernel: str, dev, stream: int, *words: int):
+    """``kernel``'s scratch tensors on this stream, the i-th of at least
+    ``words[i]`` int64 words, and this call's epoch. A kernel keeps each
+    kind of epoch-tagged word in a tensor of its own, so that whatever
+    sizes earlier calls had, a word there is either this call's or reads
+    as an earlier epoch's. A new or grown tensor is zeroed (epoch 0 is
+    never a call's) and the epoch counter runs on, so the other tensors'
+    words stay older than the next epoch; when the counter wraps, every
+    tensor is zeroed once more, so no earlier call's word can carry the
+    current epoch."""
+    key = (kernel, dev.index, stream)
+    entry = _SCRATCH.get(key)
+    if entry is None:
+        entry = _SCRATCH[key] = [[None] * len(words), 0]
+    bufs = entry[0]
+    for i, need in enumerate(words):
+        if bufs[i] is None or bufs[i].numel() < need:
+            size = need if bufs[i] is None else max(need,
+                                                    2 * bufs[i].numel() - 1)
+            bufs[i] = torch.zeros(size, dtype=torch.int64, device=dev)
     entry[1] += 1
     if entry[1] == _EPOCH_END:
-        entry[0].zero_()
+        for b in bufs:
+            b.zero_()
         entry[1] = 1
-    return entry[0], entry[1]
+    return bufs, entry[1]
+
+
+def _perm_passes(num_keys: int) -> int:
+    """Digit passes of compact_perm's radix sort: its keys are at most
+    ``num_keys + 1``."""
+    return max(1, -(-(num_keys + 1).bit_length() // _DIGIT_BITS))
+
+
+def _sort_words(E: int, passes: int) -> int:
+    """The radix sort's tagged words (``sort_words`` in frontier.cu):
+    digit totals and a ticket for each of 4 passes, a count and a max
+    word, then a status word per digit, tile and pass."""
+    tiles = max(1, -(-E // _SORT_TILE))
+    return _MAX_PASSES * (_RADIX + 1) + 2 + passes * tiles * _RADIX
+
+
+def _dedup_table(S: int, E: int) -> int:
+    """Slots of hash_dedup's table (``dedup_table_cap``): a power of two
+    (8 at the least) at least 1.5 (S + E), so at most 2/3 full."""
+    p, need = 8, S + E + (S + E + 1) // 2
+    while p < need:
+        p *= 2
+    return p
 
 
 def compact(flags: torch.Tensor, cap: int,
@@ -118,9 +153,9 @@ def compact(flags: torch.Tensor, cap: int,
     emask = torch.empty(cap, dtype=torch.bool, device=dev)
     num = torch.empty((), dtype=torch.int32, device=dev)
     fn = _build.function("frontier_compact")
-    with _COMPACT_LOCK:
-        scratch, epoch = _compact_scratch(dev, stream,
-                                          -(-E // _COMPACT_TILE))
+    with _SCRATCH_LOCK:
+        (scratch,), epoch = _scratch("compact", dev, stream,
+                                     1 + 2 * -(-E // _COMPACT_TILE))
         status = fn(_build.ptr(flags), E, _build.ptr(n_live), cap,
                     _build.ptr(sel), _build.ptr(emask), _build.ptr(num),
                     _build.ptr(scratch), epoch, stream)
@@ -132,8 +167,8 @@ def compact(flags: torch.Tensor, cap: int,
 def compact_perm(keys: torch.Tensor, valid: torch.Tensor, num_keys: int,
                  n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stable permutation by ascending key, invalid last (contract:
-    ``ref.compact_perm``): an LSD radix sort of ``key + 1`` with the
-    index as payload."""
+    ``ref.compact_perm``): the shared single-pass radix sort of ``key +
+    1`` with the index as payload, 1 + :func:`_perm_passes` launches."""
     if keys.device.type == "cpu":
         return ref.compact_perm(keys, valid, num_keys)
     dev = keys.device
@@ -143,35 +178,33 @@ def compact_perm(keys: torch.Tensor, valid: torch.Tensor, num_keys: int,
     E = keys.shape[0]
     if valid.shape[0] != E:
         raise ValueError("keys and valid differ in length")
-    bits = (num_keys + 1).bit_length()
+    if not 0 <= num_keys < 2**31 - 2:
+        raise ValueError(f"num_keys {num_keys} out of range")
+    passes = _perm_passes(num_keys)
     perm = torch.empty(E, dtype=torch.int32, device=dev)
-    ka, va, kb, vb = (_i32(E, dev) for _ in range(4))
-    hist = _i32(_RADIX * max(1, -(-E // _RADIX_TILE)), dev)
-    totals = _i32(_RADIX, dev)
-    status = _build.function("frontier_compact_perm")(
-        _build.ptr(keys), _build.ptr(valid), E, _build.ptr(n_live),
-        num_keys, bits, _build.ptr(perm), _build.ptr(ka), _build.ptr(va),
-        _build.ptr(kb), _build.ptr(vb), _build.ptr(hist),
-        _build.ptr(totals), _stream(dev))
+    stream = _stream(dev)
+    fn = _build.function("frontier_compact_perm")
+    with _SCRATCH_LOCK:
+        # the sort's tagged words; two lists of (key, index) pairs
+        (sorts, lists), epoch = _scratch("compact_perm", dev, stream,
+                                         _sort_words(E, passes), 2 * E)
+        status = fn(_build.ptr(keys), _build.ptr(valid), E,
+                    _build.ptr(n_live), num_keys, passes, _build.ptr(perm),
+                    _build.ptr(sorts), sorts.numel(), _build.ptr(lists),
+                    2 * lists.numel(), epoch, stream)
     _build.check(status, "frontier_compact_perm")
     LAUNCHES["compact_perm"] += 1
     return perm
-
-
-def _pow2_at_least(x: int) -> int:
-    p = 8
-    while p < x:
-        p *= 2
-    return p
 
 
 def hash_dedup(values: torch.Tensor, mask: torch.Tensor,
                seeds: Optional[torch.Tensor], new_cap: int,
                n_live: Optional[torch.Tensor] = None) -> DedupResult:
     """Dedup against ``seeds`` + value -> slot lookup (contract:
-    ``ref.hash_dedup``, overflow included): an atomicCAS open-addressing
-    table, a radix sort of the collected new values, one probe per
-    value."""
+    ``ref.hash_dedup``, overflow included): an epoch-tagged
+    open-addressing table cached per stream, the new values sorted by the
+    shared radix sort, one probe per value; 7 launches (6 with no
+    seeds)."""
     if values.device.type == "cpu":
         return ref.hash_dedup(values, mask, seeds, new_cap)
     dev = values.device
@@ -184,22 +217,25 @@ def hash_dedup(values: torch.Tensor, mask: torch.Tensor,
     if mask.shape[0] != E:
         raise ValueError("values and mask differ in length")
     S = 0 if seeds is None else seeds.shape[0]
-    table_cap = _pow2_at_least(2 * (S + E))
-    tbl_keys, tbl_vals = _i32(table_cap, dev), _i32(table_cap, dev)
-    raw_a, raw_b = _i32(E, dev), _i32(E, dev)
-    hist = _i32(_RADIX * max(1, -(-E // _RADIX_TILE)), dev)
-    totals, meta = _i32(_RADIX, dev), _i32(8, dev)
     new = torch.empty(new_cap, dtype=torch.int32, device=dev)
     slots = torch.empty(E, dtype=torch.int32, device=dev)
     num_new = torch.empty((), dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
-    status = _build.function("frontier_hash_dedup")(
-        _build.ptr(values), _build.ptr(mask), E, _build.ptr(n_live),
-        _build.ptr(seeds), S, new_cap, table_cap, _build.ptr(tbl_keys),
-        _build.ptr(tbl_vals), _build.ptr(raw_a), _build.ptr(raw_b),
-        _build.ptr(hist), _build.ptr(totals), _build.ptr(meta),
-        _build.ptr(new), _build.ptr(slots), _build.ptr(num_new),
-        _build.ptr(overflow), _stream(dev))
+    stream = _stream(dev)
+    fn = _build.function("frontier_hash_dedup")
+    table = _dedup_table(S, E)
+    with _SCRATCH_LOCK:
+        # the sort's tagged words; the table's slots; the table's values
+        # and two lists of (value, slot)
+        (sorts, tkeys, lists), epoch = _scratch(
+            "hash_dedup", dev, stream, _sort_words(E, _MAX_PASSES), table,
+            (table + 4 * E + 1) // 2)
+        status = fn(_build.ptr(values), _build.ptr(mask), E,
+                    _build.ptr(n_live), _build.ptr(seeds), S, new_cap,
+                    _build.ptr(new), _build.ptr(slots), _build.ptr(num_new),
+                    _build.ptr(overflow), _build.ptr(sorts), sorts.numel(),
+                    _build.ptr(tkeys), tkeys.numel(), _build.ptr(lists),
+                    2 * lists.numel(), epoch, stream)
     _build.check(status, "frontier_hash_dedup")
     LAUNCHES["hash_dedup"] += 1
     return DedupResult(new=new, slots=slots, num_new=num_new,

@@ -136,16 +136,16 @@ def test_compact_after_a_skipped_epoch_and_the_wrap(cuda_device):
     match. Then the epoch counter runs past its end and wraps."""
     dev = torch.device("cuda", torch.cuda.current_device())
     g = torch.Generator(device=dev).manual_seed(17)
-    key = (dev.index, fk._stream(dev))
+    key = ("compact", dev.index, fk._stream(dev))
     for E in (200_000, 70_001, 200_000):
         flags = torch.rand(E, generator=g, device=dev) < 0.4
         _compact_equal(flags, E // 3)
-        fk._compact_scratch(dev, key[1], -(-E // fk._COMPACT_TILE))
-    fk._COMPACT_SCRATCH[key][1] = fk._EPOCH_END - 3
+        fk._scratch("compact", dev, key[2], 1 + 2 * -(-E // fk._COMPACT_TILE))
+    fk._SCRATCH[key][1] = fk._EPOCH_END - 3
     for E in (50_000, 200_000, 33, 120_000, 16_385):
         flags = torch.rand(E, generator=g, device=dev) < 0.6
         _compact_equal(flags, E)
-    assert fk._COMPACT_SCRATCH[key][1] == 3
+    assert fk._SCRATCH[key][1] == 3
 
 
 @pytest.mark.cuda
@@ -166,17 +166,20 @@ def test_compact_on_two_streams(cuda_device):
     for flags, (st, got) in zip(inputs, outs):
         for x, y in zip(got, fr.compact(flags, flags.shape[0] // 2)):
             assert torch.equal(x, y)
-    scratch = [fk._COMPACT_SCRATCH[(0, st.cuda_stream)][0]
+    scratch = [fk._SCRATCH[("compact", 0, st.cuda_stream)][0][0]
                for st in streams]
     assert scratch[0].data_ptr() != scratch[1].data_ptr()
 
 
 @pytest.mark.cuda
 def test_wrapper_constants_match_the_kernels(cuda_device):
-    """The tile width the wrapper sizes compact's scratch by, and the
-    lanes per draw the plain search mirrors, are the built kernels'."""
+    """The tile widths the wrappers size compact's and the radix sort's
+    scratch by, the sort's digit width, and the lanes per draw the plain
+    search mirrors, are the built kernels'."""
     from repro_torch.kernels import _build
     assert fk._COMPACT_TILE == _build.function("frontier_compact_tile")()
+    assert fk._SORT_TILE == _build.function("frontier_sort_tile")()
+    assert fk._DIGIT_BITS == _build.function("frontier_digit_bits")()
     assert fr.SEARCH_G == _build.function("frontier_search_group")()
 
 
@@ -201,6 +204,308 @@ def test_compact_is_one_device_operation(cuda_device):
     assert fk.LAUNCHES["compact"] == 7
     assert sum(c for _, c in ops) == 7, ops
     assert all("compact" in k for k, _ in ops), ops
+
+
+def _perm_equal(keys, valid, K, live=None):
+    got = fk.compact_perm(keys, valid, K, live)
+    want = fr.compact_perm(keys, valid, K)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _dedup_equal(values, mask, seeds, new_cap, live=None):
+    got = fk.hash_dedup(values, mask, seeds, new_cap, live)
+    want = fr.hash_dedup(values, mask, seeds, new_cap)
+    for f, x, y in zip(want._fields, got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y), f
+    return int(want.num_new)
+
+
+def _dedup_inputs(g, E, hi, dev):
+    """E values, half of them drawn from [0, hi) and half from a narrow
+    range (duplicates), 80% masked in; seeds: distinct ids taken from the
+    values and from [0, hi), -1 padded."""
+    wide = torch.randint(0, hi, (E,), generator=g, device=dev,
+                         dtype=torch.int32)
+    narrow = torch.randint(0, E // 4 + 2, (E,), generator=g, device=dev,
+                           dtype=torch.int32)
+    values = torch.where(torch.rand(E, generator=g, device=dev) < 0.5, wide,
+                         narrow)
+    mask = torch.rand(E, generator=g, device=dev) < 0.8
+    pick = values[torch.randperm(E, generator=g, device=dev)[:E // 8 + 1]]
+    extra = torch.randint(0, hi, (E // 8 + 1,), generator=g, device=dev,
+                          dtype=torch.int32)
+    seeds = torch.unique(torch.cat([pick, extra])).to(torch.int32)
+    seeds = torch.cat([seeds[torch.randperm(seeds.shape[0], generator=g,
+                                            device=dev)],
+                       torch.full((7,), -1, dtype=torch.int32, device=dev)])
+    return values, mask, seeds
+
+
+#: both sides of one radix-sort tile, of 2, of 4 and 5 (the look-back reads
+#: four words a step; 4 tiles are one fill ticket) and of 32
+SORT_SIZES = [1, 31, 33, 255] + [k * fk._SORT_TILE + d
+                                 for k in (1, 2, 4, 5, 32) for d in (-1, 0, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", SORT_SIZES)
+def test_sort_kernels_at_tile_boundaries(cuda_device, E):
+    """compact_perm with 1, 2 and 3 digit passes and hash_dedup (values
+    up to 2^31 - 1, so that all four of its passes have work) bit for
+    bit at tile-boundary sizes: n_live none, half and E, new_cap below,
+    at and above the distinct count."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(E)
+    for n_live in (None, E // 2, E):
+        live = (None if n_live is None else
+                torch.tensor(n_live, dtype=torch.int32, device=dev))
+        valid = torch.rand(E, generator=g, device=dev) < 0.8
+        for K in (200, 40_000, 1_083_008):
+            keys = torch.randint(-1, K, (E,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            v = valid.clone()
+            if n_live is not None:
+                v[n_live:] = False
+            _perm_equal(keys, v, K, live)
+        values, mask, seeds = _dedup_inputs(g, E, 2**31 - 1, dev)
+        if n_live is not None:
+            mask[n_live:] = False
+        num = _dedup_equal(values, mask, seeds, E, live)
+        for new_cap in sorted({max(num - 1, 1), max(num, 1), num + 1}):
+            _dedup_equal(values, mask, seeds, new_cap, live)
+            _dedup_equal(values, mask, None, new_cap, live)
+
+
+@pytest.mark.cuda
+def test_sort_kernels_at_the_layer2_shapes(cuda_device):
+    """Phase 2's layer 2: E = 9,426,304 edge slots, 866,504 live, S =
+    470,656 seeds, new_cap = 612,352 (and one that overflows), K =
+    1,083,008 vertex slots."""
+    dev = cuda_device
+    E, n, S, new_cap, K = 9_426_304, 866_504, 470_656, 612_352, 1_083_008
+    g = torch.Generator(device=dev).manual_seed(2)
+    values = torch.randint(0, 1_000_000, (E,), generator=g, device=dev,
+                           dtype=torch.int32)
+    mask = torch.arange(E, device=dev) < n
+    seeds = torch.randperm(1_000_000, generator=g, device=dev)[:S].to(
+        torch.int32)
+    live = torch.tensor(n, dtype=torch.int32, device=dev)
+    num = _dedup_equal(values, mask, seeds, new_cap, live)
+    assert 200_000 < num < new_cap
+    _dedup_equal(values, mask, seeds, 200_000, live)
+    keys = torch.randint(-1, K, (E,), generator=g, device=dev,
+                         dtype=torch.int32)
+    _perm_equal(keys, mask, K, live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 4097, 70_000])
+def test_dedup_values_with_the_high_bits(cuda_device, E):
+    """Values with bits 24-30 set, 0 and 2^31 - 2 among them (2^31 - 1 is
+    the plain version's sentinel, no vertex id), seeds among them too:
+    every digit pass of hash_dedup's sort has work."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(E + 1)
+    values = torch.randint(2**24, 2**31 - 1, (E,), generator=g, device=dev,
+                           dtype=torch.int32)
+    values[::7] = 2**31 - 2
+    values[3::11] = 0
+    values[5::13] = values[1::13][:values[5::13].shape[0]]
+    mask = torch.rand(E, generator=g, device=dev) < 0.9
+    seeds = torch.unique(values[::5]).to(torch.int32)
+    for s in (None, seeds):
+        num = _dedup_equal(values, mask, s, E)
+        _dedup_equal(values, mask, s, max(num // 2, 1))
+
+
+@pytest.mark.cuda
+def test_sort_kernels_adversarial(cuda_device):
+    """chip_smoke.py's adversarial cases of both kernels."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def bools(n, p):
+        return torch.rand(n, generator=g, device=dev) < p
+
+    seeds = torch.cat([torch.randperm(5000, generator=g, device=dev)[:300]
+                       .to(torch.int32),
+                       torch.full((20,), -1, dtype=torch.int32, device=dev)])
+    for values, mask, s, new_cap in [
+            (ints(3000, 0, 5000), bools(3000, 0.0), seeds, 400),
+            (torch.full((3000,), 7, dtype=torch.int32, device=dev),
+             bools(3000, 1.0), seeds, 400),
+            (ints(20000, 0, 100000), bools(20000, 0.9), seeds, 500),
+            (seeds[:300].repeat(10), bools(3000, 1.0), seeds, 10),
+            (ints(3000, -1, 800), bools(3000, 0.8), None, 1000),
+            (ints(1, 0, 10), bools(1, 1.0), seeds, 1),
+            (ints(0, 0, 10), bools(0, 1.0), seeds, 3)]:
+        _dedup_equal(values, mask, s, new_cap)
+    for E, K, p in ((3000, 1, 0.7), (3000, 50, 0.0), (20000, 70000, 0.8),
+                    (2049, 3, 1.0), (0, 5, 1.0)):
+        keys, valid = ints(E, -1, K), bools(E, p)
+        _perm_equal(keys, valid, K)
+        live = torch.tensor(E // 3, dtype=torch.int32, device=dev)
+        valid[E // 3:] = False
+        _perm_equal(keys, valid, K, live)
+
+
+def _sort_calls(g, dev, count):
+    """``count`` calls of random sizes, hash_dedup and compact_perm in
+    turn; returns each call's inputs and outputs, checked later."""
+    calls = []
+    for i in range(count):
+        E = int(torch.randint(1, 150_000, (1,), generator=g, device=dev))
+        live = torch.randint(0, E + 1, (), generator=g, device=dev,
+                             dtype=torch.int32)
+        if i % 2:
+            K = int(torch.randint(1, 2_000_000, (1,), generator=g,
+                                  device=dev))
+            keys = torch.randint(-1, K, (E,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            valid = (torch.rand(E, generator=g, device=dev) < 0.7) & (
+                torch.arange(E, device=dev) < live)
+            calls.append((fr.compact_perm, (keys, valid, K),
+                          fk.compact_perm(keys, valid, K, live)))
+        else:
+            values, mask, seeds = _dedup_inputs(g, E, 1 << 22, dev)
+            mask &= torch.arange(E, device=dev) < live
+            new_cap = int(torch.randint(1, E + 1, (1,), generator=g,
+                                        device=dev))
+            args = (values, mask, seeds if i % 4 else None, new_cap)
+            calls.append((fr.hash_dedup, args, fk.hash_dedup(*args, live)))
+    return calls
+
+
+def _check_calls(calls):
+    for plain, args, got in calls:
+        want = plain(*args)
+        for x, y in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_sort_kernels_repeated_calls_reuse_the_scratch(cuda_device):
+    """40 calls in a row of different sizes on one stream, checked after
+    the last: the cached table, lists and status words, the per-call
+    epoch and the epoch-tagged tickets and counts."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    _check_calls(_sort_calls(g, cuda_device, 40))
+
+
+@pytest.mark.cuda
+def test_sort_kernels_on_two_streams(cuda_device):
+    """Calls interleaved on two streams, each stream with its own
+    scratch per kernel, each result checked."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    calls = []
+    for i in range(12):
+        st = streams[i % 2]
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            calls += _sort_calls(g, cuda_device, 2)
+    torch.cuda.synchronize()
+    _check_calls(calls)
+    for kernel in ("hash_dedup", "compact_perm"):
+        a, b = (fk._SCRATCH[(kernel, 0, st.cuda_stream)][0] for st in streams)
+        assert {x.data_ptr() for x in a}.isdisjoint(x.data_ptr() for x in b)
+
+
+@pytest.mark.cuda
+def test_sort_kernels_after_a_skipped_epoch_and_the_wrap(cuda_device):
+    """An epoch taken with no launch leaves the words of the call before;
+    the next calls still match. Then each kernel's epoch counter runs
+    past its end and wraps, which zeroes its scratch once."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(17)
+    stream = fk._stream(dev)
+    _check_calls(_sort_calls(g, dev, 4))
+    for kernel in ("hash_dedup", "compact_perm"):
+        entry = fk._SCRATCH[(kernel, dev.index, stream)]
+        fk._scratch(kernel, dev, stream, *[0] * len(entry[0]))
+        entry[1] = fk._EPOCH_END - 3
+    _check_calls(_sort_calls(g, dev, 10))
+    for kernel in ("hash_dedup", "compact_perm"):
+        assert fk._SCRATCH[(kernel, dev.index, stream)][1] == 3
+
+
+def _device_ops(fn, calls):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,passes", [(22_272, 2), (470_656, 3),
+                                      (1_083_008, 3)])
+def test_compact_perm_is_one_plus_passes_device_operations(cuda_device, K,
+                                                           passes):
+    """torch.profiler sees the upsweep and one kernel a digit pass per
+    compact_perm call at phase 2's vertex caps, and no memset or copy."""
+    E = 448_384
+    keys = torch.randint(-1, K, (E,), device=cuda_device, dtype=torch.int32)
+    valid = torch.rand(E, device=cuda_device) < 0.3
+    live = torch.tensor(E // 2, dtype=torch.int32, device=cuda_device)
+    valid[E // 2:] = False
+    assert fk._perm_passes(K) == passes
+    ops = _device_ops(lambda: fk.compact_perm(keys, valid, K, live), 5)
+    assert sum(c for _, c in ops) == 5 * (1 + passes), ops
+    assert all("perm_upsweep" in k or "sort_pass" in k for k, _ in ops), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_seeds", [True, False])
+def test_hash_dedup_is_at_most_seven_device_operations(cuda_device,
+                                                       with_seeds):
+    """torch.profiler sees 7 kernels per hash_dedup call (6 with no
+    seeds), and no memset or copy."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(4)
+    values, mask, seeds = _dedup_inputs(g, 448_384, 1 << 20, dev)
+    live = torch.tensor(109_557, dtype=torch.int32, device=dev)
+    mask[109_557:] = False
+    s = seeds if with_seeds else None
+    ops = _device_ops(lambda: fk.hash_dedup(values, mask, s, 448_384, live),
+                      5)
+    assert sum(c for _, c in ops) == 5 * (7 if with_seeds else 6), ops
+    assert all("dedup_" in k or "sort_pass" in k for k, _ in ops), ops
+
+
+@pytest.mark.cuda
+def test_warm_calls_allocate_only_their_outputs(cuda_device):
+    """Once the scratch is cached, a hash_dedup call allocates its four
+    outputs and a compact_perm call its one, nothing else."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(6)
+    values, mask, seeds = _dedup_inputs(g, 100_000, 1 << 20, dev)
+    keys = torch.randint(-1, 22_272, (100_000,), generator=g, device=dev,
+                         dtype=torch.int32)
+    live = torch.tensor(60_000, dtype=torch.int32, device=dev)
+    mask[60_000:] = False
+    calls = ((lambda: fk.hash_dedup(values, mask, seeds, 50_000, live), 4),
+             (lambda: fk.compact_perm(keys, mask, 22_272, live), 1))
+    for fn, outputs in calls:
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            before = torch.cuda.memory_stats()["allocation.all.allocated"]
+            out = fn()
+            after = torch.cuda.memory_stats()["allocation.all.allocated"]
+            assert after - before == outputs
+            del out
 
 
 @pytest.fixture(scope="module")
