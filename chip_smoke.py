@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
   python3 chip_smoke.py [--scale 0.25] [--requests 8] [--steps 8] [--reps 20]
+                        [--kernels-only]
 
 Phases, each printing JSON lines; any mismatch, build failure or launch
 error exits non-zero:
@@ -32,12 +33,16 @@ error exits non-zero:
      computing the same function, where there is one (none computes a
      segment softmax). Compact against ``torch.nonzero``, hash_dedup
      against ``torch.unique`` + ``torch.searchsorted``, compact_perm
-     against a stable ``torch.argsort`` and B7's search against
+     against a stable ``torch.argsort``, the forward SpMM against a
+     gather + ``index_add_``, segment_select against one stable
+     ``torch.sort`` + a rank filter and B7's search against
      ``torch.searchsorted`` are then timed again on the same
      inputs, ``TRIAL_ROUNDS`` rounds in turn, all rounds printed, each
      as event ms (back-to-back calls between CUDA events), device ms
      and operations (torch.profiler over the same calls) and enqueue ms
-     (a host clock over them with no sync), then each call's device ms;
+     (a host clock over them with no sync), then each call's device ms
+     (for the SpMM and segment_select also by device operation). With
+     ``--kernels-only`` the script stops here;
   3. serve: ``--requests`` requests through ``repro_torch.launch.serve``'s
      synchronous path on products at ``--scale`` (0.25: 612,257
      vertices) with the paper's widths (100 features, hidden 256, 47
@@ -139,6 +144,8 @@ TF32X3_FLOP_PER_S = 495e12 / 3
 #: rounds of phase 2's trials (each kernel in ``trials`` against its
 #: library call)
 TRIAL_ROUNDS = 5
+#: trials that also print each call's device operations by name
+SPLIT_TRIALS = ("spmm", "segment_select")
 INT_MAX = 2**31 - 1
 DEV = "cuda"
 WGRAD_PATH = "aggregate backward, weights requiring a gradient"
@@ -353,30 +360,49 @@ def phase_kernels(engine, data, seeds, key, reps, records, trials):
         sargs = (blk.src_slot, blk.dst_slot, blk.weight, blk.edge_mask, h,
                  blk.seed_cap)
         got = sk.spmm_block(*sargs, n_live=live)
-        want = sr.spmm_block_ref(*sargs)
-        torch.cuda.synchronize()
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
-            fail(f"spmm layer {layer} F {F}: max abs err "
-                 f"{(got - want).abs().max().item()}")
-        err = (got - want).abs().max().item()
+        err = spmm_bits_or_fail(f"spmm layer {layer} F {F}", got, sargs)
         src = blk.src_slot[:n]
         rows = int(torch.unique(src).numel())
         seg = blk.dst_slot[:n].long()
+        live_rows = int(torch.unique(seg[seg >= 0]).numel())
+        last_key = int(seg[-1]) if n else -1
+        past_last = blk.seed_cap - min(max(last_key + 1, 0), blk.seed_cap)
 
         def library(h=h, src=src, seg=seg, w=blk.weight[:n], S=blk.seed_cap):
             return torch.zeros(S, h.shape[1], device=DEV).index_add_(
                 0, seg, h[src.long()] * w[:, None])
 
+        pair = (lambda sargs=sargs, live=live: sk.spmm_block(*sargs,
+                                                             n_live=live),
+                library)
+        trials["spmm"].append(pair)
         t = records["spmm"].add(
-            cuda_ms(lambda: sk.spmm_block(*sargs, n_live=live), reps),
+            cuda_ms(pair[0], reps),
             cuda_ms(lambda: sr.spmm_block_ref(*sargs), reps),
-            cuda_ms(library, reps),
+            cuda_ms(pair[1], reps),
             nbytes=n * 13 + rows * F * 4 + blk.seed_cap * F * 4,
             flops=2.0 * n * F, err=err)
         emit({"phase": "kernels", "kernel": "spmm", "layer": layer,
               "S": blk.seed_cap, "T": blk.next_cap, "F": F, "live": n,
+              "live_rows": live_rows, "rows_past_last_key": past_last,
               "max_abs_err": err, **t})
     adversarial(fk, fr, sk, sr)
+
+
+def spmm_bits_or_fail(name, got, sargs):
+    """The forward SpMM against its plain version run on the CPU, whose
+    scatter_add sums each row in edge order (on the card it adds with
+    atomics, in no fixed order): bit for bit. Returns the max abs error
+    (0.0)."""
+    from repro_torch.kernels.spmm import ref as sr
+    want = sr.spmm_block_ref(*[x.cpu() for x in sargs[:5]], sargs[5])
+    got = got.cpu()
+    if got.shape != want.shape or not torch.equal(got.view(torch.int32),
+                                                  want.view(torch.int32)):
+        err = ((got - want).abs().max().item() if got.shape == want.shape
+               else "shape")
+        fail(f"{name}: kernel and plain version differ (max abs err {err})")
+    return 0.0
 
 
 def adversarial(fk, fr, sk, sr):
@@ -439,10 +465,30 @@ def adversarial(fk, fr, sk, sr):
         dst = torch.where(mask, dst, -1)
         h = torch.randn(T, F, generator=g, device=dev)
         live = torch.tensor(live_n, dtype=torch.int32, device=dev)
-        got = sk.spmm_block(src, dst, w, mask, h, S, n_live=live)
-        want = sr.spmm_block_ref(src, dst, w, mask, h, S)
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
-            fail(f"spmm adversarial E={E} F={F} live={live_n}")
+        sargs = (src, dst, w, mask, h, S)
+        spmm_bits_or_fail(f"spmm adversarial E={E} F={F} live={live_n}",
+                          sk.spmm_block(*sargs, n_live=live), sargs)
+        cases += 1
+    # the forward kernel's splits on a padded F = 100 block: rows of 0, 1,
+    # 32, 33, 128 and 129 edges (a lane group's chunk, the block-summed
+    # rows), a row of 3,000, -1 sources, masked edges, a seed cap 20x the
+    # live rows; then the same rows at F = 64 (half a warp a row) and 300
+    lens = torch.tensor([0, 1, 32, 33, 128, 129, 3, 10, 0, 64] * 300
+                        + [3000], device=dev)
+    dst = torch.repeat_interleave(torch.arange(
+        lens.numel(), device=dev, dtype=torch.int32), lens)
+    n = dst.numel()
+    E, S, T = n + 500, 20 * lens.numel(), 40_000
+    dst = torch.cat([dst, torch.full((500,), -1, dtype=torch.int32,
+                                     device=dev)])
+    mask = (torch.arange(E, device=dev) < n) & bools(E, 0.9)
+    src, w = ints(E, -1, T), torch.rand(E, generator=g, device=dev) - 0.3
+    live = torch.tensor(n, dtype=torch.int32, device=dev)
+    for F in (100, 64, 300):
+        h = torch.randn(T, F, generator=g, device=dev)
+        sargs = (src, dst, w, mask, h, S)
+        spmm_bits_or_fail(f"spmm adversarial padded block F={F}",
+                          sk.spmm_block(*sargs, n_live=live), sargs)
         cases += 1
     # masked_cdf_draw: the reference suite's adversarial weights, u = 0
     # over an invalid entry 0, zero-mass plateaus, an all-invalid p, no
@@ -509,6 +555,25 @@ def device_ms(fns, reps):
             sum(r[2] for r in rows) / reps)
 
 
+def device_ms_by_op(fn, reps):
+    """torch.profiler over ``reps`` calls of ``fn``: each device operation
+    by name, with its device ms and its count per call (None where the
+    profiler saw no device event: not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        return None
+    return {name[:80]: {"ms": us / 1e3 / reps, "count": c / reps}
+            for us, name, c in sorted(rows, reverse=True)}
+
+
 def split_ms(fns, reps):
     """Per call, summed over ``fns``: CUDA-event ms of back-to-back calls
     (``cuda_ms``), device ms and device operations (``device_ms``), and
@@ -522,14 +587,18 @@ def split_ms(fns, reps):
 def phase_trials(trials, reps):
     """Each kernel of ``trials`` against its library call (compact:
     ``torch.nonzero``; hash_dedup: ``torch.unique`` +
-    ``torch.searchsorted``; compact_perm: a stable ``torch.argsort``; B7's
-    search: ``torch.searchsorted``) on the same real inputs,
+    ``torch.searchsorted``; compact_perm: a stable ``torch.argsort``; the
+    forward SpMM: a gather + ``index_add_``; segment_select:
+    ``library_select``; B7's search: ``torch.searchsorted``) on the same
+    real inputs,
     ``TRIAL_ROUNDS`` rounds in turn (kernel, library) in one run. Each
     round gives, for both sides, the event, device and enqueue ms of
     ``split_ms``, summed over the calls of phase 2 (``reps`` launches
     each): the event ms is the larger of the device's and the host's
     pace, and the split says which one it is. Then each call's device ms
-    alone, in phase 2's order."""
+    alone, in phase 2's order, and for ``SPLIT_TRIALS`` each call's
+    device ms in every round (``*_device_ms_by_call_rounds``, one list a
+    call) and its device operations by name."""
     for name, pairs in trials.items():
         rounds = {"kernel": [], "library": []}
         for _ in range(TRIAL_ROUNDS):
@@ -544,6 +613,17 @@ def phase_trials(trials, reps):
         for side, i in (("kernel", 0), ("library", 1)):
             out[f"{side}_device_ms_by_call"] = [
                 device_ms([pair[i]], reps)[0] for pair in pairs]
+        if name in SPLIT_TRIALS:
+            # each call's device ms in every round, both sides in turn
+            for side in ("kernel", "library"):
+                out[f"{side}_device_ms_by_call_rounds"] = [[] for _ in pairs]
+            for _ in range(TRIAL_ROUNDS):
+                for side, i in (("kernel", 0), ("library", 1)):
+                    for c, pair in enumerate(pairs):
+                        out[f"{side}_device_ms_by_call_rounds"][c].append(
+                            device_ms([pair[i]], reps)[0])
+            out["kernel_device_ops_by_call"] = [
+                device_ms_by_op(pair[0], reps) for pair in pairs]
         for key in ("event_ms", "device_ms", "enqueue_ms"):
             out[f"kernel_faster_in_{key[:-3]}"] = sum(
                 a < b for a, b in zip(out[f"kernel_{key}"],
@@ -615,6 +695,15 @@ def library_select(keys, slot, mask, seg_start, take):
         0, order, inc)
 
 
+def segment_lengths(seg_start, E, n):
+    """Live edges of each segment of an expand_seed_edges layout: segment
+    s spans [seg_start[s], seg_start[s + 1]) (the last one ends at E),
+    clipped to the buffer and the live prefix n."""
+    starts = torch.clamp(seg_start.long(), 0, E)
+    ends = torch.cat([starts[1:], starts.new_full((1,), E)])
+    return torch.clamp(torch.clamp(ends, max=n) - starts, min=0)
+
+
 def phase_train_kernels(samplers_, data, seeds, key, reps, records, trials):
     """Phase 2, training half: segment_select on the NS batch's real
     inputs, masked_cdf_draw's search on the LADIES batch's CDFs, the
@@ -644,16 +733,20 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records, trials):
         same(f"segment_select library layer {layer}",
              library_select(keys, slot, mask, seg_start, take), want)
         n, E, S = int(live), keys.shape[0], seg_start.shape[0]
+        lens = segment_lengths(seg_start, E, n)
+        pair = (lambda a=a, live=live: fk.segment_select(*a, live),
+                lambda a=a: library_select(*a))
+        trials["segment_select"].append(pair)
         t = records["segment_select"].add(
-            cuda_ms(lambda: fk.segment_select(keys, slot, mask, seg_start,
-                                              take, live), reps),
+            cuda_ms(pair[0], reps),
             cuda_ms(lambda: fr.segment_select(keys, slot, mask, seg_start,
                                               take), reps),
-            cuda_ms(lambda: library_select(keys, slot, mask, seg_start,
-                                           take), reps),
+            cuda_ms(pair[1], reps),
             nbytes=n * 5 + S * 8 + E)
         emit({"phase": "kernels", "kernel": "segment_select", "layer": layer,
-              "E": E, "S": S, "live": n, "selected": int(want.sum()), **t})
+              "E": E, "S": S, "live": n, "selected": int(want.sum()),
+              "segments_over_256": int((lens > 256).sum()),
+              "longest_segment": int(lens.max()) if S else 0, **t})
 
     ladies = samplers_["ladies"]
     calls = capture(frontier_ops, "masked_cdf_draw", lambda: ladies.sample(
@@ -785,11 +878,17 @@ def adversarial_train(fk, fr, sk, sr):
     dev = DEV
     g = torch.Generator(device=dev).manual_seed(3)
     cases = 0
-    # segment_select: ties, takes of 0, warp- and block-sized segments,
-    # an expansion truncated at the cap, a segment of length 1
+    # segment_select: ties (some, then all keys), takes of 0, warp- and
+    # block-sized segments, segments longer than a block stages, takes
+    # at and past the live count, an expansion truncated at the cap, a
+    # segment of length 1
     for deg_list, cap_frac, k in (([1], 1.0, 1), ([0, 3, 0, 40, 1], 1.0, 4),
                                   ([700, 2, 257, 256, 5000], 1.0, 10),
-                                  ([30] * 50 + [900], 0.7, 10)):
+                                  ([30] * 50 + [900], 0.7, 10),
+                                  # past the 10,240 keys a block stages
+                                  ([12_000, 2048, 60_000, 5], 0.9, 10),
+                                  # takes at and past the live count
+                                  ([256, 257, 2048, 300], 1.0, 3000)):
         deg = torch.tensor(deg_list, dtype=torch.int32, device=dev)
         total = int(deg.sum())
         cap = max(1, int(total * cap_frac))
@@ -799,12 +898,14 @@ def adversarial_train(fk, fr, sk, sr):
         mask = pos < live
         slot = torch.where(mask, torch.searchsorted(
             torch.cumsum(deg, 0), pos, right=True).to(torch.int32), -1)
-        for ties in (False, True):
+        for ties in (0, 3, 1):
             keys = torch.rand(cap, generator=g, device=dev)
             if ties:
-                keys = torch.floor(keys * 3) / 3
+                keys = torch.floor(keys * ties) / ties
             keys = torch.where(mask, keys, 3.4e38)
             take = torch.clamp(deg, max=k)
+            if k > max(deg_list):   # at the live count, and past it
+                take[1::2] += 7
             take[::3] = 0
             args = (keys, slot, mask, seg_start, take.to(torch.int32))
             n = torch.tensor(live, dtype=torch.int32, device=dev)
@@ -1826,6 +1927,8 @@ def main():
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (no kernels or ok line)")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1918,7 +2021,7 @@ def main():
             "src/repro/kernels/edge_softmax/edge_softmax.py:42"),
     }
     trials = {"compact": [], "hash_dedup": [], "compact_perm": [],
-              "masked_cdf_draw": []}
+              "spmm": [], "segment_select": [], "masked_cdf_draw": []}
     phase_kernels(engine, data, seeds0, key0, opts.reps, records, trials)
 
     # the first training batch of the launcher's run, for NS, LADIES and
@@ -1942,6 +2045,10 @@ def main():
     phase_gatv2_kernels(samplers_["engine"], data, seeds_t, key_t, opts.reps,
                         records, n_cls, opts.seed)
     del samplers_
+    if opts.kernels_only:
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "kernels_only": True})
+        return
 
     # -- phase 3: serve through the launcher's synchronous path ------------
     reset_launches()

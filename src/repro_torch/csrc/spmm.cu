@@ -25,7 +25,23 @@
 // (prepare_chunks) because scatters are slow there. That layout is not
 // carried over: on this card a gather-reduce over the sorted segments fits
 // better. The sampler's valid edges are a dst-sorted prefix of length n_live
-// (compact keeps the segment order of expand_seed_edges). Three kernels:
+// (compact keeps the segment order of expand_seed_edges).
+//
+// The forward SpMM (no perm) is one launch, spmm_forward_kernel, with no
+// offsets pass and no scratch: a group of lanes fitted to the width (half a
+// warp up to 64 columns, a float4 a lane up to 128, two up to 256) takes a
+// chunk of 32 (or 16) consecutive live edges, loads their keys and indices
+// and those of the next 32 edges coalesced into registers (one edge a
+// lane, one round trip) and sums the rows that start in the chunk in edge
+// order, two edges' value loads in flight. The rows past the last live key
+// (most of the output at the deepest layer, where the rows are the
+// previous layer's vertex cap) are zeroed by one flat float4 fill, the
+// empty rows between keys by the group that finds them. A row of more
+// than kHeavyEdges edges is queued in shared memory and summed by the
+// whole block once its groups are done. At most 64 registers a thread
+// (32 warps an SM).
+//
+// The transposed form (through perm) and scatter_rows keep three kernels:
 //
 //   row_offsets: one pass over the live prefix writes row_start[r], the
 //     index of the first edge whose key (dst, or in the transposed call the
@@ -59,14 +75,18 @@
 // this file, which searched each row's range with two binary searches per
 // warp and column slice, gives the same bits).
 //
-// What bounds them: bytes. The offsets pass reads each live key once (4
+// What bounds them: bytes. The forward kernel reads each live edge's key
+// and indices once (13 bytes) and its value row, and writes the output
+// once. The offsets pass reads each live key once (4
 // bytes, 8 through perm) and writes 4 (num_rows + 1) bytes; the sums read
 // two offsets a row, each live edge's indices (5 to 13 bytes) and one value
 // row (F floats), and write num_rows x F floats. The arithmetic is 1-2
 // flops per gathered float, far below the card's ratio of flops to bytes.
 // A width below 256 leaves lanes of the warp idle (F = 1 for an
 // edge_softmax with one head). A heavy row is bound by its sequential sum's
-// latency instead: 64 edges a round trip per warp.
+// latency instead: 64 edges a round trip per warp. The forward kernel's
+// gathers of random source rows at the deepest layer miss the L2 more
+// often than the bound assumes (it counts each distinct row once).
 //
 // gather_dst_rows replaces repro/kernels/spmm/spmm.py _gather_kernel
 // (gather_rows_sorted, via gather_dst_block), which multiplies a one-hot
@@ -80,6 +100,7 @@
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -93,6 +114,7 @@ constexpr int kGapSerial = 32;          // wider gaps: filled by the block
 constexpr int kChunk = 1024;            // edge indices a heavy block stages
 constexpr int kDeep = 64;               // value loads in flight, heavy warp
 constexpr long kGridCap = 132 * 64;
+constexpr long kForwardGridCap = 132 * 16;
 
 __device__ __forceinline__ int live_count(const int* n_live, int E) {
   if (n_live == nullptr) return E;
@@ -319,6 +341,300 @@ __global__ void heavy_sums_kernel(const int* row_start, const int* src,
   }
 }
 
+// ---- the forward SpMM (dst-sorted, unpermuted, weighted) -------------------
+
+// Zeros floats [a, b) of p: the threads tid, tid + nthreads, ... of the
+// caller share the work, float4 stores from the first 16-byte boundary,
+// marked streaming (evict first), so that the gathered rows keep the L2.
+__device__ __forceinline__ void zero_floats(float* p, long a, long b, long tid,
+                                            long nthreads) {
+  if (a >= b) return;
+  long a4 = a + (long)(((16 - ((uintptr_t)(p + a) & 15)) & 15) >> 2);
+  if (a4 > b) a4 = b;
+  const long b4 = a4 + ((b - a4) & ~3L);
+  if (tid < a4 - a) __stcs(p + a + tid, 0.f);
+  for (long i = a4 + 4 * tid; i < b4; i += 4 * nthreads)
+    __stcs((float4*)(p + i), make_float4(0.f, 0.f, 0.f, 0.f));
+  if (tid < b - b4) __stcs(p + b4 + tid, 0.f);
+}
+
+// A group of G lanes (a warp, or half of one at G = 16) and its columns:
+// unit v of group lane gl holds columns c0 + 4 (gl + G v) .. + 3 (kVec, a
+// float4) or c0 + gl + G v.
+template <int G, int V, bool kVec>
+struct Cols {
+  static constexpr int kUnit = kVec ? 4 : 1;
+  static constexpr int kPass = G * V * kUnit;   // columns a pass
+  int col[V];
+  __device__ Cols(int c0, int gl) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) col[v] = c0 + kUnit * (gl + G * v);
+  }
+  __device__ void load(float* x, const float* row, int F, bool use) const {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (kVec) {
+        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (use && col[v] < F) q = __ldg((const float4*)(row + col[v]));
+        x[4 * v] = q.x;
+        x[4 * v + 1] = q.y;
+        x[4 * v + 2] = q.z;
+        x[4 * v + 3] = q.w;
+      } else {
+        x[v] = use && col[v] < F ? __ldg(row + col[v]) : 0.f;
+      }
+    }
+  }
+  __device__ void store(float* row, const float* acc, int F) const {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (col[v] >= F) continue;
+      if (kVec)
+        __stcs((float4*)(row + col[v]),
+               make_float4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2],
+                           acc[4 * v + 3]));
+      else
+        __stcs(row + col[v], acc[v]);
+    }
+  }
+};
+
+// One edge of a window of G consecutive edges, held by group lane gl for
+// edge wbase + gl: its key (dst; INT_MAX past the live prefix), its value
+// row (the source, wrapped as the plain version's index is; -1 for a
+// masked edge, which loads nothing) and its weight (0 when masked).
+struct Edge {
+  int key, row;
+  float w;
+};
+
+__device__ __forceinline__ Edge load_edge(const int* dst, const int* src,
+                                          const float* w,
+                                          const uint8_t* mask, int i, int n,
+                                          int T) {
+  Edge x{INT_MAX, -1, 0.f};
+  if (i < n) {
+    const int k = dst[i], s = src[i];
+    const float we = w[i];
+    x.key = k;
+    if (mask[i]) {
+      x.row = s < 0 ? s + T : s;  // the plain version's negative-index wrap
+      x.w = we;
+    }
+  }
+  return x;
+}
+
+// The group sums edges [lo, hi) of two consecutive windows (edge j of the
+// pair is lane j of window a for j < G, lane j - G of window b after) in
+// edge order, U edges' loads in flight. An edge whose bit is set in
+// `starts` (window a only) opens the row of its key, and the row before it
+// (cur_row, if any) is stored first. A masked edge adds 0 * 0: the sum
+// starts at +0 and is never -0, so that leaves its bits as they are.
+// (No `break` in the unrolled loops: x must stay in registers.)
+template <int G, int V, int U, bool kVec>
+__device__ __forceinline__ void sum_edges(
+    const Cols<G, V, kVec>& cols, unsigned gmask, int lo, int hi,
+    unsigned starts, const Edge& a, const Edge& b, const float* h, int F,
+    float* out, float* acc, int* cur_row) {
+  constexpr int kX = V * Cols<G, V, kVec>::kUnit;
+  for (int j0 = lo; j0 < hi; j0 += U) {
+    float x[U][kX];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u;
+      int r = __shfl_sync(gmask, j < G ? a.row : b.row, j & (G - 1), G);
+      if (j >= hi) r = -1;
+      cols.load(x[u], h + (long)(r < 0 ? 0 : r) * F, F, r >= 0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u;
+      const float wj = __shfl_sync(gmask, j < G ? a.w : b.w, j & (G - 1), G);
+      if (j < hi) {
+        if (j < G && ((starts >> j) & 1u)) {
+          if (*cur_row >= 0) cols.store(out + (long)*cur_row * F, acc, F);
+#pragma unroll
+          for (int k = 0; k < kX; ++k) acc[k] = 0.f;
+          *cur_row = __shfl_sync(gmask, a.key, j, G);
+        }
+#pragma unroll
+        for (int k = 0; k < kX; ++k)
+          acc[k] = __fadd_rn(acc[k], __fmul_rn(x[u][k], wj));
+      }
+    }
+  }
+}
+
+// The forward SpMM in one launch, with no offsets pass. Every thread first
+// zeroes its share of the rows past the last live key (one flat fill: at
+// the deepest layer most of the output's rows are padding). Then a group
+// of G lanes takes a chunk of C consecutive live edges (grid-stride over
+// chunks; C = G, or G / 2 where two float4 a lane leave room for fewer
+// edges in flight, to keep the group's chain of round trips short) and
+// owns the rows that start in it: an edge starts a row where its key
+// differs from its predecessor's (the rows between the two keys are empty,
+// and the same group zeroes them; keys of -1 and keys >= S start no row).
+// The group loads the indices of 2 G edges from the chunk's start
+// together, coalesced, two edges a lane, and sums its rows' edges in edge
+// order, the chunk's last row run on as far as those edges reach, U edges'
+// value rows in flight at a time. A last row that runs further follows on
+// window by window, unless it holds more than kHeavyEdges edges: then it
+// goes on a queue in shared memory (if the queue has room), and the whole
+// block sums it once its groups are done, 8 warps over the columns and
+// kForwardDeep edges in flight each. Outputs are stored streaming.
+constexpr int kHeavyQueue = 64;
+constexpr int kForwardDeep = 16;
+
+template <int G, int C, int V, int U, bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
+spmm_forward_kernel(const int* __restrict__ dst, const int* __restrict__ src,
+                    const float* __restrict__ w,
+                    const uint8_t* __restrict__ mask, int E,
+                    const int* __restrict__ n_live,
+                    const float* __restrict__ h, int T, int F, int S,
+                    float* __restrict__ out) {
+  static_assert(C == G || 2 * C == G, "a chunk of G or G / 2 edges");
+  __shared__ int q_row[kHeavyQueue], q_lo[kHeavyQueue];
+  __shared__ int q_n;
+  __shared__ int s_e[kChunk];
+  __shared__ float s_w[kChunk];
+  __shared__ int s_end;
+  if (threadIdx.x == 0) q_n = 0;
+  __syncthreads();
+  const int n = live_count(n_live, E);
+  const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long nthreads = (long)gridDim.x * blockDim.x;
+  const int last_key = n > 0 ? dst[n - 1] : -1;
+  const int tail = min(max(last_key + 1, 0), S);
+  zero_floats(out, (long)tail * F, (long)S * F, tid, nthreads);
+
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);
+  const unsigned shift = lane & ~(G - 1);
+  const unsigned gmask =
+      G == 32 ? 0xffffffffu : (((1u << G) - 1u) << shift);
+  const unsigned own = C == 32 ? 0xffffffffu : (1u << C) - 1u;
+  const long chunks = ((long)n + C - 1) / C;
+  for (long c = tid / G; c < chunks; c += nthreads / G) {
+    const int base = (int)(c * C);
+    const Edge a = load_edge(dst, src, w, mask, base + gl, n, T);
+    const Edge b = load_edge(dst, src, w, mask, base + G + gl, n, T);
+    int prev = __shfl_up_sync(gmask, a.key, 1, G);
+    if (gl == 0) prev = base > 0 ? dst[base - 1] : -1;
+    const bool in = base + gl < n;
+    const bool term = !in || a.key != prev;  // ends the row before the edge
+    const bool valid = in && term && a.key >= 0 && a.key < S;
+    // empty rows between the predecessor's key and this one (the chunk's
+    // own edges)
+    const int gap_lo = max(prev + 1, 0), gap_hi = min(a.key, S);
+    unsigned gaps = (__ballot_sync(gmask, in && term && gap_lo < gap_hi)
+                     & gmask) >> shift & own;
+    while (gaps) {
+      const int l = __ffs(gaps) - 1;
+      gaps &= gaps - 1;
+      zero_floats(out, (long)__shfl_sync(gmask, gap_lo, l, G) * F,
+                  (long)__shfl_sync(gmask, gap_hi, l, G) * F, gl, G);
+    }
+    const unsigned starts =
+        (__ballot_sync(gmask, valid) & gmask) >> shift & own;
+    if (starts == 0) continue;
+    const unsigned terms = (__ballot_sync(gmask, term) & gmask) >> shift;
+    const int first = __ffs(starts) - 1;
+    const int last = 31 - __clz(starts);
+    // the chunk's rows end at the first terminator after its last start
+    // (the next chunk's first row, a key >= S, the live prefix's end)
+    const unsigned after = last == 31 ? 0u : terms & ~((2u << last) - 1u);
+    const int limit = after ? __ffs(after) - 1 : G;
+    // the last row runs on into window b while its keys are K
+    const int K = __shfl_sync(gmask, a.key, last, G);
+    const unsigned ends = (__ballot_sync(gmask, b.key != K) & gmask) >> shift;
+    const int hi1 = limit < G ? 0 : (ends ? __ffs(ends) - 1 : G);
+    const bool runs_on = hi1 == G;   // past window b too
+    bool queued = false;
+    if (runs_on) {
+      const int probe = base + last + kHeavyEdges;
+      if (probe < n && dst[probe] == K) {   // heavy: for the block
+        int q = kHeavyQueue;
+        if (gl == 0) {
+          q = atomicAdd(&q_n, 1);
+          if (q < kHeavyQueue) {
+            q_row[q] = K;
+            q_lo[q] = base + last;
+          }
+        }
+        queued = __shfl_sync(gmask, q, 0, G) < kHeavyQueue;
+      }
+    }
+    const int span_end = queued ? last : (limit < G ? limit : G + hi1);
+
+    for (int c0 = 0; c0 < F; c0 += Cols<G, V, kVec>::kPass) {
+      const Cols<G, V, kVec> cols(c0, gl);
+      float acc[V * Cols<G, V, kVec>::kUnit];
+#pragma unroll
+      for (int k = 0; k < V * Cols<G, V, kVec>::kUnit; ++k) acc[k] = 0.f;
+      int cur_row = -1;
+      sum_edges<G, V, U, kVec>(cols, gmask, first, span_end, starts, a, b,
+                               h, F, out, acc, &cur_row);
+      // a long row that is not queued: window by window
+      for (int wb = base + 2 * G; runs_on && !queued && wb < n; wb += G) {
+        const Edge e = load_edge(dst, src, w, mask, wb + gl, n, T);
+        const unsigned e_ends =
+            (__ballot_sync(gmask, e.key != K) & gmask) >> shift;
+        const int hi = e_ends ? __ffs(e_ends) - 1 : G;
+        sum_edges<G, V, U, kVec>(cols, gmask, 0, hi, 0u, e, e, h, F, out,
+                                 acc, &cur_row);
+        if (hi < G) break;
+      }
+      if (cur_row >= 0) cols.store(out + (long)cur_row * F, acc, F);
+    }
+  }
+
+  // the queued heavy rows, each by the whole block: warp wp sums columns
+  // c0 + 32 wp + lane over the row's edges in edge order, from edge
+  // indices staged kChunk at a time; the row ends at the first key that
+  // differs from its own (or at the live prefix's end)
+  __syncthreads();
+  const int n_heavy = min(q_n, kHeavyQueue);
+  const int wp = threadIdx.x >> 5;
+  for (int q = 0; q < n_heavy; ++q) {
+    const int row = q_row[q], lo = q_lo[q];
+    for (int c0 = 0; c0 < F; c0 += kThreads) {
+      const int col = c0 + 32 * wp + lane;
+      float acc = 0.f;
+      for (int base = lo; ; base += kChunk) {
+        __syncthreads();   // the previous chunk is consumed
+        if (threadIdx.x == 0) s_end = kChunk;
+        __syncthreads();
+        for (int j = threadIdx.x; j < kChunk; j += kThreads) {
+          const Edge e = load_edge(dst, src, w, mask, base + j, n, T);
+          if (e.key != row) atomicMin(&s_end, j);
+          s_e[j] = e.row;
+          s_w[j] = e.w;
+        }
+        __syncthreads();
+        const int cnt = s_end;
+        if (c0 + 32 * wp < F) {
+          for (int j0 = 0; j0 < cnt; j0 += kForwardDeep) {
+            float x[kForwardDeep];
+#pragma unroll
+            for (int u = 0; u < kForwardDeep; ++u) {
+              const int r = j0 + u < cnt ? s_e[j0 + u] : -1;
+              x[u] = r >= 0 && col < F ? __ldg(h + (long)r * F + col) : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < kForwardDeep; ++u)
+              if (j0 + u < cnt)
+                acc = __fadd_rn(acc, __fmul_rn(x[u], s_w[j0 + u]));
+          }
+        }
+        if (cnt < kChunk) break;
+      }
+      if (col < F) __stcs(out + (long)row * F + col, acc);
+    }
+  }
+}
+
 __global__ void gather_rows_kernel(const int* dst, const uint8_t* mask, int E,
                                    const int* n_live, const float* rows, int S,
                                    int F, float* out) {
@@ -401,10 +717,62 @@ extern "C" int spmm_row_offsets(const int* key, const int* perm, int E,
   return (int)cudaGetLastError();
 }
 
+template <int G, int C, int V, int U, bool kVec>
+static void launch_forward(const int* dst, const int* src, const float* w,
+                           const uint8_t* mask, int E, const int* n_live,
+                           const float* h, int T, int F, int S, float* out,
+                           cudaStream_t stream) {
+  // a group per C-edge chunk of the buffer (the live count is on the
+  // device), at least a thread per 16 float4s of the output, capped
+  const long per_block = (long)C * (kThreads / G);
+  const long chunk_blocks = ((long)E + per_block - 1) / per_block;
+  const long fill_blocks = ((long)S * F / 64 + kThreads - 1) / kThreads;
+  long blocks = chunk_blocks > fill_blocks ? chunk_blocks : fill_blocks;
+  blocks = blocks < 1 ? 1 : (blocks > kForwardGridCap ? kForwardGridCap
+                                                      : blocks);
+  spmm_forward_kernel<G, C, V, U, kVec>
+      <<<(int)blocks, kThreads, 0, stream>>>(dst, src, w, mask, E, n_live, h,
+                                             T, F, S, out);
+}
+
+// The forward SpMM: lanes fitted to the width (half a warp a row up to 64
+// columns, a float4 a lane up to 128, two up to 256 and more passes past
+// it); where a lane holds two float4, a group takes chunks of 16 edges.
+// Two edges' loads in flight a group: at the deepest layer's shape the
+// gathers of random source rows ran slower with 1, 3, 4, 8 or 16 on the
+// card (tools/spmm_forward_sweep.py times the variants).
+static int spmm_forward(const int* dst, const int* src, const float* w,
+                        const uint8_t* mask, int E, const int* n_live,
+                        const float* h, int T, int F, int S, float* out,
+                        cudaStream_t st) {
+  const bool vec = F % 4 == 0 && (((uintptr_t)h | (uintptr_t)out) & 15) == 0;
+  if (vec && F <= 64)
+    launch_forward<16, 16, 1, 2, true>(dst, src, w, mask, E, n_live, h, T, F,
+                                       S, out, st);
+  else if (vec && F <= 128)
+    launch_forward<32, 32, 1, 2, true>(dst, src, w, mask, E, n_live, h, T, F,
+                                       S, out, st);
+  else if (vec)
+    launch_forward<32, 16, 2, 2, true>(dst, src, w, mask, E, n_live, h, T, F,
+                                       S, out, st);
+  else if (F <= 64)
+    launch_forward<32, 32, 2, 2, false>(dst, src, w, mask, E, n_live, h, T,
+                                        F, S, out, st);
+  else
+    launch_forward<32, 16, 8, 2, false>(dst, src, w, mask, E, n_live, h, T,
+                                        F, S, out, st);
+  return (int)cudaGetLastError();
+}
+
+// perm == nullptr: the forward kernel (one launch, no scratch); through a
+// perm (the transposed SpMM): the offsets pass and the row sums.
 extern "C" int spmm_rows(const int* dst, const int* src, const float* w,
                          const uint8_t* mask, const int* perm, int E,
                          const int* n_live, const float* h, int T, int F,
                          int S, int* scratch, float* out, void* stream) {
+  if (perm == nullptr)
+    return spmm_forward(dst, src, w, mask, E, n_live, h, T, F, S, out,
+                        (cudaStream_t)stream);
   return segment_sums<false>(dst, src, w, mask, perm, E, n_live, h, T, F, S,
                              scratch, out, (cudaStream_t)stream);
 }

@@ -50,7 +50,7 @@ SIGNATURES = {
     "frontier_cdf_search": ("search", [_P, _I, _P, _I, _P, _P]),
     "frontier_search_group": ("search", []),
     "frontier_segment_select": ("select", [_P, _P, _I, _P, _P, _P, _I, _P,
-                                           _P, _P, _P]),
+                                           _P, _P, _U, _P]),
     "spmm_rows": ("spmm", [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P,
                            _P, _P]),
     "scatter_rows": ("spmm", [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P]),

@@ -13,11 +13,12 @@ TPU variants are held to the same contract.
 On a CPU tensor each wrapper runs the plain version in ``ref.py``; on a
 CUDA tensor it checks device, dtype, shape and contiguity, allocates its
 outputs at the static caps (no host sync sizes anything; compact,
-compact_perm and hash_dedup take their scratch from :func:`_scratch`,
-cached per stream), launches on the current stream, raises if the launch
-failed, and adds one to its entry of :data:`LAUNCHES`. ``n_live`` (an
-int32 device scalar, optional) bounds the work by the real count:
-entries at index >= n_live must be masked, and the kernels stop there.
+compact_perm, hash_dedup and segment_select take their scratch from
+:func:`_scratch`, cached per stream), launches on the current stream,
+raises if the launch failed, and adds one to its entry of
+:data:`LAUNCHES`. ``n_live`` (an int32 device scalar, optional) bounds
+the work by the real count: entries at index >= n_live must be masked,
+and the kernels stop there.
 """
 from __future__ import annotations
 
@@ -70,10 +71,6 @@ def _stream(device) -> int:
     with its index): ``current_stream(device).cuda_stream`` without
     building a Stream object on every call."""
     return torch._C._cuda_getCurrentRawStream(device.index)
-
-
-def _i32(n: int, device) -> torch.Tensor:
-    return torch.empty(max(n, 1), dtype=torch.int32, device=device)
 
 
 #: scratch per (kernel, device index, stream): [list of int64 tensors, the
@@ -247,9 +244,11 @@ def segment_select(keys: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
                    n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-segment smallest-``take`` keys, ties by arrival order
     (contract: ``ref.segment_select``): one warp per segment with the
-    keys in registers, one block per segment longer than 256 edges.
-    The kernel reads the segments from ``seg_start``; ``slot`` must
-    agree with it, as in the ``expand_seed_edges`` layout."""
+    keys in registers, one block per segment longer than 256 edges (a
+    radix select over keys staged in shared memory); 2 launches, the
+    long-segment list cached per stream. The kernel reads the segments
+    from ``seg_start``; ``slot`` must agree with it, as in the
+    ``expand_seed_edges`` layout."""
     if keys.device.type == "cpu":
         return ref.segment_select(keys, slot, mask, seg_start, take)
     dev = keys.device
@@ -264,11 +263,16 @@ def segment_select(keys: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
         raise ValueError("segment_select: edge or segment arrays differ "
                          "in length")
     include = torch.empty(E, dtype=torch.bool, device=dev)
-    long_list, long_count = _i32(S, dev), _i32(1, dev)
-    status = _build.function("frontier_segment_select")(
-        _build.ptr(keys), _build.ptr(mask), E, _build.ptr(n_live),
-        _build.ptr(seg_start), _build.ptr(take), S, _build.ptr(include),
-        _build.ptr(long_list), _build.ptr(long_count), _stream(dev))
+    stream = _stream(dev)
+    fn = _build.function("frontier_segment_select")
+    with _SCRATCH_LOCK:
+        # the tagged long-segment count; the list, two int32 a word
+        (count, lst), epoch = _scratch("segment_select", dev, stream, 1,
+                                       (S + 1) // 2)
+        status = fn(_build.ptr(keys), _build.ptr(mask), E,
+                    _build.ptr(n_live), _build.ptr(seg_start),
+                    _build.ptr(take), S, _build.ptr(include),
+                    _build.ptr(count), _build.ptr(lst), epoch, stream)
     _build.check(status, "frontier_segment_select")
     LAUNCHES["segment_select"] += 1
     return include

@@ -18,10 +18,13 @@ past it are masked. ``build_block`` emits exactly that layout:
 permutes the edges by ``src_perm``, a stable sort by ``src_slot`` with
 the masked edges last, so the same prefix is sorted by ``src_slot``.
 
-The SpMM and ``scatter_rows`` kernels first write each output row's
-edge range into an int32 scratch that the wrapper allocates (``num_rows
-+ 1`` offsets, and a list of the rows too long for one warp), then sum
-each row; ``n_live`` stays on the device.
+The forward SpMM (``spmm_block``) is one launch with no scratch: a
+group of lanes per chunk of live edges sums the rows that start in it,
+and the rows past the last live key are zeroed in one flat fill. The
+transposed SpMM and ``scatter_rows`` first write each output row's edge
+range into an int32 scratch that the wrapper allocates (``num_rows + 1``
+offsets, and a list of the rows too long for one warp), then sum each
+row. ``n_live`` stays on the device.
 
 On a CPU tensor each wrapper runs its plain version in ``ref.py``; on a
 CUDA tensor it launches the kernel or raises, and adds one to its entry
@@ -79,10 +82,12 @@ def _spmm(src_slot, dst_slot, weight, mask, h, num_rows, n_live,
     _check_rows("h", h)
     T, F = h.shape
     out = torch.empty(num_rows, F, dtype=torch.float32, device=dev)
+    # the forward kernel (no perm) needs no scratch
+    scratch = None if perm is None else _scratch(num_rows, dev)
     status = _build.function("spmm_rows")(
         _build.ptr(dst_slot), _build.ptr(src_slot), _build.ptr(weight),
         _build.ptr(mask), _build.ptr(perm), E, _build.ptr(n_live),
-        _build.ptr(h), T, F, num_rows, _build.ptr(_scratch(num_rows, dev)),
+        _build.ptr(h), T, F, num_rows, _build.ptr(scratch),
         _build.ptr(out), _stream(dev))
     _build.check(status, "spmm_rows")
     return out
@@ -93,7 +98,8 @@ def spmm_block(src_slot: torch.Tensor, dst_slot: torch.Tensor,
                num_rows: int, n_live: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
     """Aggregate ``weight * h[src_slot]`` into ``num_rows`` destination
-    rows; h float32 (T, F) -> (num_rows, F), every row written."""
+    rows; h float32 (T, F) -> (num_rows, F), every row written: one
+    launch of the forward kernel."""
     if h.device.type == "cpu":
         return ref.spmm_block_ref(src_slot, dst_slot, weight, mask, h,
                                   num_rows)

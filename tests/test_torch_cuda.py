@@ -193,14 +193,17 @@ def test_compact_is_one_device_operation(cuda_device):
     live = torch.tensor(400_000, dtype=torch.int32, device=cuda_device)
     fk.compact(flags, 100_000, live)
     torch.cuda.synchronize()
-    fk.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(7):
-            fk.compact(flags, 100_000, live)
-        torch.cuda.synchronize()
-    ops = [(e.key, e.count) for e in prof.key_averages()
-           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    for _ in range(3):   # profiled again when the profiler lost events
+        fk.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(7):
+                fk.compact(flags, 100_000, live)
+            torch.cuda.synchronize()
+        ops = [(e.key, e.count) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+        if sum(c for _, c in ops) >= 7:
+            break
     assert fk.LAUNCHES["compact"] == 7
     assert sum(c for _, c in ops) == 7, ops
     assert all("compact" in k for k, _ in ops), ops
@@ -448,6 +451,19 @@ def _device_ops(fn, calls):
             if getattr(e, "device_type", None) == DeviceType.CUDA]
 
 
+def _device_ops_of(fn, calls, per_call):
+    """``_device_ops`` of ``calls`` calls, profiled again (up to three
+    times) when the profiler saw fewer than ``per_call`` operations a
+    call: a torch.profiler run on the card now and then loses some of
+    its kernel events (a whole test file's run showed it, and
+    chip_smoke's trials: one round in five)."""
+    for _ in range(3):
+        ops = _device_ops(fn, calls)
+        if sum(c for _, c in ops) >= calls * per_call:
+            break
+    return ops
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,passes", [(22_272, 2), (470_656, 3),
                                       (1_083_008, 3)])
@@ -461,7 +477,8 @@ def test_compact_perm_is_one_plus_passes_device_operations(cuda_device, K,
     live = torch.tensor(E // 2, dtype=torch.int32, device=cuda_device)
     valid[E // 2:] = False
     assert fk._perm_passes(K) == passes
-    ops = _device_ops(lambda: fk.compact_perm(keys, valid, K, live), 5)
+    ops = _device_ops_of(lambda: fk.compact_perm(keys, valid, K, live), 5,
+                         1 + passes)
     assert sum(c for _, c in ops) == 5 * (1 + passes), ops
     assert all("perm_upsweep" in k or "sort_pass" in k for k, _ in ops), ops
 
@@ -478,8 +495,9 @@ def test_hash_dedup_is_at_most_seven_device_operations(cuda_device,
     live = torch.tensor(109_557, dtype=torch.int32, device=dev)
     mask[109_557:] = False
     s = seeds if with_seeds else None
-    ops = _device_ops(lambda: fk.hash_dedup(values, mask, s, 448_384, live),
-                      5)
+    ops = _device_ops_of(lambda: fk.hash_dedup(values, mask, s, 448_384,
+                                               live), 5,
+                         7 if with_seeds else 6)
     assert sum(c for _, c in ops) == 5 * (7 if with_seeds else 6), ops
     assert all("dedup_" in k or "sort_pass" in k for k, _ in ops), ops
 
@@ -487,7 +505,8 @@ def test_hash_dedup_is_at_most_seven_device_operations(cuda_device,
 @pytest.mark.cuda
 def test_warm_calls_allocate_only_their_outputs(cuda_device):
     """Once the scratch is cached, a hash_dedup call allocates its four
-    outputs and a compact_perm call its one, nothing else."""
+    outputs and compact_perm and segment_select calls their one, nothing
+    else."""
     dev = cuda_device
     g = torch.Generator(device=dev).manual_seed(6)
     values, mask, seeds = _dedup_inputs(g, 100_000, 1 << 20, dev)
@@ -495,8 +514,11 @@ def test_warm_calls_allocate_only_their_outputs(cuda_device):
                          dtype=torch.int32)
     live = torch.tensor(60_000, dtype=torch.int32, device=dev)
     mask[60_000:] = False
+    sel = _segments(g, torch.randint(0, 300, (2000,), generator=g,
+                                     device=dev), 200_000, dev)
     calls = ((lambda: fk.hash_dedup(values, mask, seeds, 50_000, live), 4),
-             (lambda: fk.compact_perm(keys, mask, 22_272, live), 1))
+             (lambda: fk.compact_perm(keys, mask, 22_272, live), 1),
+             (lambda: fk.segment_select(*sel), 1))
     for fn, outputs in calls:
         fn()
         torch.cuda.synchronize()
@@ -1292,3 +1314,294 @@ def test_spmm_forms_equal_the_search_kernel(cuda_device, search_kernel, F,
         ref = old()
         assert torch.equal(a, b)
         assert torch.equal(a.view(torch.int32), ref.view(torch.int32))
+
+
+# -- the forward SpMM kernel at its paths' boundaries ------------------------
+
+#: row lengths around the forward kernel's splits: one lane group's
+#: 32-edge chunk, the 128-edge limit past which the block sums a row
+FORWARD_ROWS = (0, 1, 32, 33, 128, 129, 0, 3, 10, 0, 0, 64, 31, 1, 2, 5)
+
+
+def _forward_case(g, lens, S, T, dev, tail=100, masked=0.1):
+    """A dst-sorted live prefix of rows 0 .. len(lens) - 1 with lens[r]
+    edges each, then ``tail`` masked edges keyed -1; sources in [-1, T)
+    (a -1 source wraps to the last row, as the plain version's index
+    does), weights in [-0.3, 0.7), about ``masked`` of the live edges
+    masked."""
+    lens_t = torch.as_tensor(lens, device=dev)
+    n = int(lens_t.sum())
+    dst = torch.cat([torch.repeat_interleave(
+        torch.arange(len(lens), device=dev, dtype=torch.int32), lens_t),
+        torch.full((tail,), -1, dtype=torch.int32, device=dev)])
+    E = n + tail
+    mask = (torch.arange(E, device=dev) < n) & (
+        torch.rand(E, generator=g, device=dev) >= masked)
+    src = torch.randint(-1, T, (E,), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand(E, generator=g, device=dev) - 0.3
+    return src, dst, w, mask, torch.tensor(n, dtype=torch.int32, device=dev)
+
+
+def _forward_equal(src, dst, w, mask, h, S, live):
+    """The kernel against the plain version run on the CPU, whose
+    scatter_add sums each row in edge order: bit for bit."""
+    got = sk.spmm_block(src, dst, w, mask, h, S, n_live=live)
+    want = sr.spmm_block_ref(src.cpu(), dst.cpu(), w.cpu(), mask.cpu(),
+                             h.cpu(), S)
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 47, 64, 65, 100, 128, 129, 256, 300])
+def test_spmm_forward_rows_at_the_kernel_splits(cuda_device, F):
+    """Rows of 0, 1, 32, 33, 128 and 129 edges at every width split
+    (half a warp up to 64 columns, a float4 a lane up to 128, two up to
+    256, more passes past it, scalar columns at odd widths), a -1
+    source, masked edges, a seed cap 20x the live rows, and 0 live
+    edges; and a misaligned h, which takes the scalar columns."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(F)
+    lens = FORWARD_ROWS * 40
+    S, T = 20 * len(lens), 3000
+    src, dst, w, mask, live = _forward_case(g, lens, S, T, dev)
+    src[:7] = -1
+    h = torch.randn(T, F, generator=g, device=dev)
+    _forward_equal(src, dst, w, mask, h, S, live)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    got = _forward_equal(src, dst, w, mask & False, h, S, zero)
+    assert not got.any()
+    hb = torch.randn(T * F + 1, generator=g, device=dev)[1:].view(T, F)
+    _forward_equal(src, dst, w, mask, hb, S, live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["neg", "past", "gap", "one row"])
+def test_spmm_forward_keys_outside_the_rows(cuda_device, case):
+    """-1 keys before the first row, keys at and past S after the last,
+    a gap of 5,000 empty rows between two rows, and one row of 3,000
+    edges (summed by the block) alone in the output."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    F, T = 100, 2000
+    if case == "one row":
+        lens, S = (0,) * 9 + (3000,), 50
+    else:
+        lens, S = FORWARD_ROWS * 10, 12_000
+    src, dst, w, mask, live = _forward_case(g, lens, S, T, dev)
+    n = int(live)
+    if case == "neg":
+        dst[:50] = -1
+    if case == "past":
+        dst[n - 300:n] = S + torch.arange(300, device=dev,
+                                          dtype=torch.int32) // 7
+        dst[n - 400:n - 300] = S - 1
+    if case == "gap":
+        dst[:n] = torch.where(dst[:n] >= 50, dst[:n] + 5000, dst[:n])
+    h = torch.randn(T, F, generator=g, device=dev)
+    _forward_equal(src, dst, w, mask, h, S, live)
+
+
+@pytest.mark.cuda
+def test_spmm_forward_at_the_layer2_shape(cuda_device):
+    """Layer 2 of a products-0.25 LABOR-0 request: 866,504 live edges
+    of ~10 per row over 86,803 live rows, a seed cap of 470,656 (79% of
+    the rows past the last key), F = 100, an edge cap of 9,426,304."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows, S, E, T = 86_803, 470_656, 9_426_304, 1_083_008
+    lens = torch.poisson(torch.full((rows,), 10.0), generator=torch.Generator(
+        ).manual_seed(0)).to(torch.int64)
+    src, dst, w, mask, live = _forward_case(
+        g, lens.tolist(), S, T, dev, tail=E - int(lens.sum()), masked=0.0)
+    h = torch.randn(T, 100, generator=g, device=dev)
+    _forward_equal(src, dst, w, mask, h, S, live)
+
+
+@pytest.mark.cuda
+def test_spmm_forward_heavy_queue_overflow(cuda_device):
+    """More rows of over 128 edges than a block's queue holds (64 a
+    block over ~34 chunks of 256 edges each): the rest are summed by
+    their groups, window by window; both equal the plain version."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = 140_000
+    src, dst, w, mask, live = _forward_case(g, (130,) * rows, rows, 5000,
+                                            dev, masked=0.05)
+    h = torch.randn(5000, 4, generator=g, device=dev)
+    _forward_equal(src, dst, w, mask, h, rows, live)
+
+
+@pytest.mark.cuda
+def test_spmm_forward_is_one_device_operation(cuda_device):
+    """torch.profiler sees one kernel per forward SpMM call (no memset,
+    no offsets pass), and a warm call allocates only its output."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(4)
+    src, dst, w, mask, live = _forward_case(g, FORWARD_ROWS * 500, 200_000,
+                                            30_000, dev)
+    h = torch.randn(30_000, 100, generator=g, device=dev)
+    ops = _device_ops_of(lambda: sk.spmm_block(src, dst, w, mask, h,
+                                               200_000, n_live=live), 5, 1)
+    assert sum(c for _, c in ops) == 5, ops
+    assert all("spmm_forward_kernel" in k for k, _ in ops), ops
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = sk.spmm_block(src, dst, w, mask, h, 200_000, n_live=live)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        - before == 1
+    del out
+
+
+# -- segment_select's long segments and its scratch --------------------------
+
+def _select_equal(args, live=None):
+    got = fk.segment_select(*args, live)
+    assert torch.equal(got, fr.segment_select(*args))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [[256, 257, 5, 0, 300], [2048, 3, 2049],
+                                 [12_000, 10, 600], [60_000, 257]])
+@pytest.mark.parametrize("tie_every", [0, 3, 1])
+def test_segment_select_long_segments(cuda_device, deg, tie_every):
+    """Segments of 256 (the warp's), 257 and 2,048 edges (staged in
+    shared memory), 12,000 and 60,000 (past the 10,240 keys a block
+    stages: the same passes over memory), with ties every third key
+    and all keys tied, takes of 0, of 10 and at or past the live count,
+    truncated and not."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(sum(deg) + tie_every)
+    total = sum(deg)
+    for cap in (total, total - deg[-1] // 2):
+        keys, slot, mask, seg_start, take, live = _segments(
+            g, deg, cap, dev, tie_every)
+        if tie_every == 1:
+            keys = torch.where(mask, torch.full_like(keys, 0.5), keys)
+        for t in (take, torch.full_like(take, 10),
+                  torch.as_tensor(deg, dtype=torch.int32, device=dev),
+                  torch.as_tensor(deg, dtype=torch.int32, device=dev) + 7,
+                  torch.zeros_like(take)):
+            args = (keys, slot, mask, seg_start, t)
+            _select_equal(args, live)
+            _select_equal(args)
+
+
+@pytest.mark.cuda
+def test_segment_select_at_the_layer2_shape(cuda_device):
+    """Layer 2 of an NS batch at products 0.25: 470,656 segments of
+    which the first ~97k hold ~44 edges on average, a Pareto tail up to
+    ~2,000, in an expand cap of 9,426,304 slots."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(11)
+    live_segs, S, E = 96_770, 470_656, 9_426_304
+    deg = torch.clamp((torch.rand(live_segs, generator=torch.Generator(
+        ).manual_seed(1)) ** -1.0 * 8).to(torch.int64), max=2016)
+    deg = torch.cat([deg, torch.zeros(S - live_segs, dtype=torch.int64)])
+    keys, slot, mask, seg_start, take, live = _segments(g, deg.tolist(), E,
+                                                        dev)
+    _select_equal((keys, slot, mask, seg_start, take), live)
+
+
+@pytest.mark.cuda
+def test_segment_select_empty_and_degenerate(cuda_device):
+    """No segment at all (every flag 0), a segment that starts past the
+    live prefix, one segment over everything, takes of 0, and a first
+    segment that starts past 0 (the edges before it masked)."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(12)
+    E = 5000
+    keys = torch.rand(E, generator=g, device=dev)
+    live = torch.tensor(3000, dtype=torch.int32, device=dev)
+    pos = torch.arange(E, device=dev)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    got = fk.segment_select(keys, none.new_zeros(E), pos < 3000, none, none,
+                            live)
+    assert not got.any()
+    for starts, takes in (([0], [5]), ([0, 2999, 4000], [4, 1, 3]),
+                          ([500, 4000], [2, 2]), ([0, 400, 1300], [0, 0, 9])):
+        seg_start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        take = torch.tensor(takes, dtype=torch.int32, device=dev)
+        mask = (pos < 3000) & (pos >= starts[0])
+        slot = (torch.searchsorted(seg_start, pos.to(torch.int32),
+                                   right=True) - 1).to(torch.int32)
+        slot = torch.where(mask, slot, -1)
+        _select_equal((keys, slot, mask, seg_start, take), live)
+
+
+def _select_calls(g, dev, count):
+    """``count`` segment_select calls of random sizes on the current
+    stream; returns each call's inputs and output, checked later."""
+    calls = []
+    for _ in range(count):
+        n_seg = int(torch.randint(1, 3000, (1,), generator=g, device=dev))
+        deg = torch.randint(0, 40, (n_seg,), generator=g, device=dev)
+        deg[torch.rand(n_seg, generator=g, device=dev) < 0.02] = 700
+        cap = max(1, int(int(deg.sum()) * 0.9))
+        keys, slot, mask, seg_start, take, live = _segments(g, deg, cap, dev,
+                                                            3)
+        args = (keys, slot, mask, seg_start, take)
+        calls.append((fr.segment_select, args,
+                      fk.segment_select(*args, live)))
+    return calls
+
+
+@pytest.mark.cuda
+def test_segment_select_repeated_calls_reuse_the_scratch(cuda_device):
+    """30 calls in a row of different sizes on one stream, checked after
+    the last: the cached list and its epoch-tagged count."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    _check_calls(_select_calls(g, cuda_device, 30))
+
+
+@pytest.mark.cuda
+def test_segment_select_on_two_streams(cuda_device):
+    """Calls interleaved on two streams, each with its own scratch."""
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    calls = []
+    for i in range(10):
+        st = streams[i % 2]
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            calls += _select_calls(g, cuda_device, 1)
+    torch.cuda.synchronize()
+    _check_calls(calls)
+    a, b = (fk._SCRATCH[("segment_select", 0, st.cuda_stream)][0]
+            for st in streams)
+    assert {x.data_ptr() for x in a}.isdisjoint(x.data_ptr() for x in b)
+
+
+@pytest.mark.cuda
+def test_segment_select_after_a_skipped_epoch_and_the_wrap(cuda_device):
+    """An epoch taken with no launch leaves the count of the call
+    before; the next calls still match. Then the epoch counter wraps."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(29)
+    stream = fk._stream(dev)
+    _check_calls(_select_calls(g, dev, 3))
+    entry = fk._SCRATCH[("segment_select", dev.index, stream)]
+    fk._scratch("segment_select", dev, stream, *[0] * len(entry[0]))
+    entry[1] = fk._EPOCH_END - 3
+    _check_calls(_select_calls(g, dev, 5))
+    assert entry[1] == 3
+
+
+@pytest.mark.cuda
+def test_segment_select_is_two_device_operations(cuda_device):
+    """torch.profiler sees the warp pass and the long-segment pass per
+    call, and no memset or copy."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(31)
+    deg = torch.randint(0, 60, (20_000,), generator=g, device=dev)
+    deg[::97] = 900
+    cap = int(deg.sum())
+    keys, slot, mask, seg_start, take, live = _segments(g, deg, cap, dev)
+    ops = _device_ops_of(lambda: fk.segment_select(keys, slot, mask,
+                                                   seg_start, take, live),
+                         5, 2)
+    assert sum(c for _, c in ops) == 10, ops
+    assert all("select_warp" in k or "select_block" in k
+               for k, _ in ops), ops

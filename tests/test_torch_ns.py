@@ -6,7 +6,8 @@
     mode, bit for bit, on random segments with ties and on the
     adversarial cases: a take of 0, a segment truncated by the expansion
     cap, a masked tail, one segment of length 1, segments longer than
-    the kernel's 256-edge warp path;
+    the kernel's 256-edge warp path (256 and 257 edges, 2,048, all keys
+    tied over them, takes at and past the live count);
   * three-layer NS blocks at products 0.004 (batch 64, fanouts 5,5,5):
     every integer field bit for bit, ``weight`` to rtol 1e-6 / atol 1e-7
     (the serving tests' tolerance for the Hajek weights);
@@ -109,7 +110,25 @@ def _padded(case, E=1280, S=32):
             np.concatenate([take, np.zeros(S - s, np.int32)]), live)
 
 
-CASES = [(name, _padded(case)) for name, case in _cases()]
+def _long_cases():
+    """The shapes the kernel's paths split on: segments of 256 and 257
+    edges (the warp path's limit), 2,048 (the graph's in-degree tail,
+    staged in shared memory), all keys tied over long segments, and takes
+    at and past the live count (a truncated expansion included)."""
+    rng = np.random.default_rng(21)
+    out = [("warp_limit_256_257", _layout([256, 257, 3, 258], 900, rng, 10)),
+           ("segment_2048", _layout([2048, 7, 300, 0, 12], 2400, rng, 10))]
+    tied = _layout([700, 257, 40], 1000, rng, 10)
+    out.append(("all_tied_long", (np.full(1000, 0.75, np.float32),)
+                + tied[1:]))
+    big = list(_layout([300, 500, 20, 260], 900, rng, 10))
+    big[4] = np.asarray([300, 600, 25, 300], np.int32)  # take >= live
+    out.append(("take_at_least_live", tuple(big)))
+    return out
+
+
+CASES = [(name, _padded(case)) for name, case in _cases()] + [
+    (name, _padded(case, E=2560, S=8)) for name, case in _long_cases()]
 _REF = jax.jit(jfr.segment_select, static_argnums=5)
 _LEXSORT = jax.jit(jfr.segment_select_lexsort, static_argnums=5)
 
@@ -123,7 +142,8 @@ def test_segment_select_matches_reference(name, case):
     oracles = {
         "lexsort": _LEXSORT(*j, jnp.asarray(seg_start), jnp.asarray(take), S),
         "pallas_serial": jfk.segment_select_block(
-            *j, jnp.asarray(take), S, 10, interpret=True),
+            *j, jnp.asarray(take), S, max(10, int(take.max())),
+            interpret=True),
         "pallas_parallel": jpar.segment_select_block_parallel(
             *j, jnp.asarray(seg_start), jnp.asarray(take), S,
             interpret=True),
