@@ -41,8 +41,9 @@ error exits non-zero:
      as event ms (back-to-back calls between CUDA events), device ms
      and operations (torch.profiler over the same calls) and enqueue ms
      (a host clock over them with no sync), then each call's device ms
-     (for the SpMM and segment_select also by device operation). With
-     ``--kernels-only`` the script stops here;
+     (for the SpMM, segment_select and the edge softmax also in every
+     round and by device operation; the edge softmax's trial has no
+     library side). With ``--kernels-only`` the script stops here;
   3. serve: ``--requests`` requests through ``repro_torch.launch.serve``'s
      synchronous path on products at ``--scale`` (0.25: 612,257
      vertices) with the paper's widths (100 features, hidden 256, 47
@@ -53,8 +54,9 @@ error exits non-zero:
      logits to rtol = atol = 1e-4. Then 2 exact requests with the
      ``full`` sampler at ``FULL_DEPTH`` layers (every in-edge; the
      caps grow on overflow), and ``--requests`` LABOR-0 requests of
-     ``--model gatv2`` (8 heads of 32), each counted as its own path and
-     recomputed the same way;
+     ``--model gatv2`` (8 heads of 32), each counted as its own path,
+     recomputed the same way and profiled over 5 warm requests (device
+     busy ms, operations and idle share a request);
   4. train: ``--steps`` steps each of LABOR-0, NS, LABOR-1, LABOR-*,
      labor-d, LADIES and PLADIES with the GCN, and of LABOR-0 with
      GraphSAGE and with GATv2, through ``repro_torch.launch.train``'s
@@ -145,7 +147,7 @@ TF32X3_FLOP_PER_S = 495e12 / 3
 #: library call)
 TRIAL_ROUNDS = 5
 #: trials that also print each call's device operations by name
-SPLIT_TRIALS = ("spmm", "segment_select")
+SPLIT_TRIALS = ("spmm", "segment_select", "edge_softmax")
 INT_MAX = 2**31 - 1
 DEV = "cuda"
 WGRAD_PATH = "aggregate backward, weights requiring a gradient"
@@ -208,14 +210,16 @@ def same(name, a, b):
 
 
 class Record:
-    """Per-kernel sums over the calls of one request. ``flop_rate``: the
-    card's peak for the kernel's operations (fp32 FMA, or 3xTF32 on the
-    tensor cores, where the row also carries both bounds)."""
+    """Per-kernel sums over the calls of one request. ``status``: a
+    note on the kernel's design for the ``kernels`` line, or None.
+    ``flop_rate``: the card's peak for the kernel's operations (fp32
+    FMA, or 3xTF32 on the tensor cores, where the row also carries both
+    bounds)."""
 
-    def __init__(self, name, route, source, replaces,
+    def __init__(self, name, route, source, replaces, status=None,
                  flop_rate=FP32_FLOP_PER_S):
         self.row = dict(name=name, route=route, source=source,
-                        replaces=replaces, launches=0,
+                        replaces=replaces, status=status, launches=0,
                         launches_by_path={}, max_abs_err=0.0,
                         ms=0.0, plain_ms=0.0, bound_ms=0.0,
                         bound_by="bytes", library_ms=0.0)
@@ -598,37 +602,44 @@ def phase_trials(trials, reps):
     pace, and the split says which one it is. Then each call's device ms
     alone, in phase 2's order, and for ``SPLIT_TRIALS`` each call's
     device ms in every round (``*_device_ms_by_call_rounds``, one list a
-    call) and its device operations by name."""
+    call) and its device operations by name. A pair whose library call
+    is None (the edge softmax: no PyTorch call computes it) has the
+    kernel side only, and the line says so."""
     for name, pairs in trials.items():
-        rounds = {"kernel": [], "library": []}
+        sides = (("kernel", 0),)
+        if all(lib is not None for _, lib in pairs):
+            sides += (("library", 1),)
+        rounds = {side: [] for side, _ in sides}
         for _ in range(TRIAL_ROUNDS):
-            for side, fns in (("kernel", [k for k, _ in pairs]),
-                              ("library", [lib for _, lib in pairs])):
-                rounds[side].append(split_ms(fns, reps))
+            for side, i in sides:
+                rounds[side].append(split_ms([p[i] for p in pairs], reps))
         out = {"phase": "kernels", "trial": name, "calls": len(pairs),
                "rounds": TRIAL_ROUNDS}
+        if len(sides) == 1:
+            out["library"] = "none: no single PyTorch call computes it"
         for side, rs in rounds.items():
             for key in rs[0]:
                 out[f"{side}_{key}"] = [r[key] for r in rs]
-        for side, i in (("kernel", 0), ("library", 1)):
+        for side, i in sides:
             out[f"{side}_device_ms_by_call"] = [
                 device_ms([pair[i]], reps)[0] for pair in pairs]
         if name in SPLIT_TRIALS:
             # each call's device ms in every round, both sides in turn
-            for side in ("kernel", "library"):
+            for side, _ in sides:
                 out[f"{side}_device_ms_by_call_rounds"] = [[] for _ in pairs]
             for _ in range(TRIAL_ROUNDS):
-                for side, i in (("kernel", 0), ("library", 1)):
+                for side, i in sides:
                     for c, pair in enumerate(pairs):
                         out[f"{side}_device_ms_by_call_rounds"][c].append(
                             device_ms([pair[i]], reps)[0])
             out["kernel_device_ops_by_call"] = [
                 device_ms_by_op(pair[0], reps) for pair in pairs]
-        for key in ("event_ms", "device_ms", "enqueue_ms"):
-            out[f"kernel_faster_in_{key[:-3]}"] = sum(
-                a < b for a, b in zip(out[f"kernel_{key}"],
-                                      out[f"library_{key}"])
-                if a is not None and b is not None)
+        if "library" in rounds:
+            for key in ("event_ms", "device_ms", "enqueue_ms"):
+                out[f"kernel_faster_in_{key[:-3]}"] = sum(
+                    a < b for a, b in zip(out[f"kernel_{key}"],
+                                          out[f"library_{key}"])
+                    if a is not None and b is not None)
         emit(out)
 
 
@@ -958,12 +969,13 @@ def sorted_edges(g, E, S, live_n, masked_in_prefix=0.0):
 
 
 def check_softmax_rows(name, alpha, dst, mask, S):
-    """Masked edges 0, every row with a masked-in edge sums to 1."""
+    """Masked edges 0, every row with a masked-in edge sums to 1 (summed
+    in float64: a float sum of a 50,000-edge row drops ~5e-5 of it)."""
     if bool((alpha[~mask] != 0).any()):
         fail(f"{name}: a masked edge has a non-zero coefficient")
     H = alpha.shape[1]
-    sums = torch.zeros(S, H, device=DEV).index_add_(0, dst[mask].long(),
-                                                    alpha[mask])
+    sums = torch.zeros(S, H, dtype=torch.float64, device=DEV).index_add_(
+        0, dst[mask].long(), alpha[mask].double())
     rows = torch.unique(dst[mask].long())
     err = (sums[rows] - 1).abs().max().item() if rows.numel() else 0.0
     if err > 1e-5:
@@ -987,7 +999,9 @@ def sums_close_or_fail(name, got, want, abs_sum, tol=1e-5):
 def phase_gatv2_kernels(engine, data, seeds, key, reps, records, n_cls,
                         seed):
     """Phase 2, GATv2 half: the edge-softmax kernel (B8) on the logits of
-    the first LABOR-0 GATv2 batch at each layer (heads 8, 8, 1), the
+    the first LABOR-0 GATv2 batch at each layer (heads 8, 8, 1), then
+    its trial (each call's device ms in each round and its device
+    operations by name; no library side), the
     per-edge scatter in both forms (dst-sorted: ``scatter_edges``;
     through ``src_perm``: the backward of ``gather_src``) at that
     batch's widths, then adversarial cases."""
@@ -1009,6 +1023,7 @@ def phase_gatv2_kernels(engine, data, seeds, key, reps, records, n_cls,
         fail(f"GATv2 ran edge_softmax {len(calls)} times for {len(blocks)} "
              "layers")
     gen = torch.Generator(device=DEV).manual_seed(4)
+    softmax_calls = []
     for i, ((blk, logit), _) in enumerate(calls):
         layer = len(blocks) - 1 - i          # the block's index
         logit = logit.contiguous()
@@ -1024,8 +1039,11 @@ def phase_gatv2_kernels(engine, data, seeds, key, reps, records, n_cls,
         # the live logits, slots and mask read once, every coefficient
         # written once; per live logit two expf, two subtractions, an add
         # and a division
+        kernel = (lambda sargs=sargs, live=live:
+                  ek.edge_softmax_rows(*sargs, live))
+        softmax_calls.append((kernel, None))
         t = records["edge_softmax"].add(
-            cuda_ms(lambda: ek.edge_softmax_rows(*sargs, live), reps),
+            cuda_ms(kernel, reps),
             cuda_ms(lambda: er.edge_softmax_ref(*sargs), reps), None,
             nbytes=n * H * 4 + n * 5 + E * H * 4, flops=6.0 * n * H, err=err)
         emit({"phase": "kernels", "kernel": "edge_softmax", "layer": layer,
@@ -1080,8 +1098,9 @@ def phase_gatv2_kernels(engine, data, seeds, key, reps, records, n_cls,
             del keys
             del got, want, abs_sum, idx, v
         del vals
+    phase_trials({"edge_softmax": softmax_calls}, reps)
     E = blocks[-1].edge_cap
-    del calls, blocks, feats, model
+    del calls, blocks, feats, model, softmax_calls
     torch.cuda.empty_cache()
     attention_scores(E, 8, 32)
     adversarial_gatv2(ek, er, sk, sr)
@@ -1136,7 +1155,11 @@ def adversarial_gatv2(ek, er, sk, sr):
             (3000, 5000, 8, 3000, 0.0, 0.0),    # mostly one edge a row
             (1, 1, 1, 1, 0.0, 0.0), (4000, 100, 1, 3500, 0.0, 90.0),
             (6000, 400, 8, 5000, 0.3, 0.0),     # masked inside the prefix
-            (2000, 50, 8, 0, 0.0, 0.0)):        # no live edge
+            (2000, 50, 8, 0, 0.0, 0.0),         # no live edge
+            (20000, 40, 8, 18000, 0.1, 0.0),    # rows of ~450: by the block
+            (60000, 1, 8, 50000, 0.0, 0.0),     # one row holds every edge
+            (5000, 300, 3, 4001, 0.2, 200.0),   # 3 heads, n H odd
+            (3000, 200, 128, 2500, 0.1, 200.0)):  # 128 heads
         dst, mask, live = sorted_edges(g, E, S, live_n, masked)
         offset = (torch.rand(S, generator=g, device=DEV) - 0.5) * spread
         logits = (torch.randn(E, H, generator=g, device=DEV) * 3
@@ -1490,7 +1513,8 @@ def phase_serve_path(ds, opts, path, sampler, model_name, depth, requests):
     launcher's synchronous path, counts zeroed before and read after
     (every kernel of the model's forward must run); request 0 again with
     the plain versions on the card: blocks bit for bit, logits to
-    rtol = atol = 1e-4."""
+    rtol = atol = 1e-4; then torch.profiler over 5 warm requests (device
+    busy ms, operations and idle share a request)."""
     from repro_torch.core import rng as rng_lib
     from repro_torch.core.interface import pad_seeds
     from repro_torch.launch import serve
@@ -1518,8 +1542,9 @@ def phase_serve_path(ds, opts, path, sampler, model_name, depth, requests):
         fail(f"{path}: {report}")
     seeds = pad_seeds(serve.gnn_trace(args, ds)[0], args.batch, device=DEV)
     key = rng_lib.split(rng_lib.key(args.seed + 1))[1]
-    out = [TrainEngine(engine.sampler, device=DEV, backend=b).infer_blocks(
-        model, data, seeds, key) for b in ("cuda", "eager")]
+    engines = [TrainEngine(engine.sampler, device=DEV, backend=b)
+               for b in ("cuda", "eager")]
+    out = [e.infer_blocks(model, data, seeds, key) for e in engines]
     torch.cuda.synchronize()
     (logits_k, flags_k, blocks_k), (logits_e, flags_e, blocks_e) = out
     compare_blocks(blocks_k, blocks_e, f"{path} request 0")
@@ -1538,6 +1563,11 @@ def phase_serve_path(ds, opts, path, sampler, model_name, depth, requests):
           "num_next": [int(b.num_next) for b in blocks_k],
           "num_edges": [int(b.num_edges) for b in blocks_k],
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del out, logits_k, logits_e, blocks_k, blocks_e
+    n_req = 5
+    window = profile_window(
+        lambda i: engines[0].infer(model, data, seeds, key), n_req)
+    emit({"phase": path, "window_requests": n_req, **window})
     return launches
 
 
@@ -2018,7 +2048,9 @@ def main():
             "scatter_sorted_block)"),
         "edge_softmax": Record(
             "edge_softmax", "cuda", "src/repro_torch/csrc/edge_softmax.cu",
-            "src/repro/kernels/edge_softmax/edge_softmax.py:42"),
+            "src/repro/kernels/edge_softmax/edge_softmax.py:42",
+            status="redesigned: edge-parallel over the live prefix, one "
+                   "streaming fill, sums in double"),
     }
     trials = {"compact": [], "hash_dedup": [], "compact_perm": [],
               "spmm": [], "segment_select": [], "masked_cdf_draw": []}

@@ -15,9 +15,13 @@ def edge_softmax_ref(dst_slot, mask, logits, num_rows):
     sums ``exp(l - m_r)`` over the row's edges. An edge whose
     ``dst_slot`` is outside [0, num_rows) belongs to no row and gets 0.
 
-    The max and the sum run over the edges stably sorted by row, in edge
-    order within each row (``torch.segment_reduce``, no atomics), so the
-    result is the same in every run on the card."""
+    The max and the sum run over the edges stably sorted by row
+    (``torch.segment_reduce``, no atomics), so the result is the same in
+    every run on the card. The sum is taken in float64 and rounded once
+    to the logits' type: a float32 sum of a long row drops its smallest
+    terms (~5e-5 of a 50,000-edge row's sum), and in float64 the order
+    of the terms no longer moves the rounded result, which the kernel
+    relies on."""
     S = num_rows
     valid = mask & (dst_slot >= 0) & (dst_slot < S)
     key = torch.where(valid, dst_slot.long(), S)
@@ -32,6 +36,6 @@ def edge_softmax_ref(dst_slot, mask, logits, num_rows):
     safe = torch.where(valid, dst_slot, 0).long()
     shifted = torch.where(valid[:, None], logits - mx[safe], -torch.inf)
     ex = torch.exp(shifted)
-    den = torch.segment_reduce(ex[order], "sum", offsets=offsets,
-                               unsafe=True)
+    den = torch.segment_reduce(ex[order].double(), "sum", offsets=offsets,
+                               unsafe=True).to(ex.dtype)
     return ex / torch.clamp(den[safe], min=1e-9)
