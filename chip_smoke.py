@@ -56,7 +56,25 @@ error exits non-zero:
      caps grow on overflow), and ``--requests`` LABOR-0 requests of
      ``--model gatv2`` (8 heads of 32), each counted as its own path,
      recomputed the same way and profiled over 5 warm requests (device
-     busy ms, operations and idle share a request);
+     busy ms, operations and idle share a request). Then weighted graphs
+     (LABOR §A.7): the same CSR with a weight per edge from numpy at
+     ``--seed`` (uniform in [0.1, 2)); LABOR-0, NS, LABOR-1, LADIES and
+     PLADIES each sample the first request's 3 layers on the kernel path
+     (its own path, ``weighted <sampler>``) and on the plain path on the
+     card: integer block fields bit for bit, weights to rtol = atol =
+     1e-5; per-layer vertices and edges beside the unweighted ones, and
+     the host reads of loop conditions (none for LABOR-0). Then the
+     async driver (``serve async``): LABOR-0 GCN through
+     ``serve_gnn_driver``'s path on 256 Zipfian (a = 1.1) requests of 64
+     seeds, 16 coalesced dispatches of 1024, once with a 262,144-slot
+     FIFO feature cache and a 16,384-slot hidden cache at max_age 0 and
+     once with both off: every ticket's logits equal bit for bit, 5
+     hash_dedup launches a dispatch (the sampler's 3 and one lookup a
+     cache), the first dispatch recomputed on the plain path (blocks bit
+     for bit, logits to 1e-4; the tickets' logits equal the kernel
+     path's), p50/p99, nodes/s, hit rate, unique misses a dispatch, 5
+     warm dispatches under torch.profiler and one cache lookup at layer
+     2's shape timed beside its bytes bound;
   4. train: ``--steps`` steps each of LABOR-0, NS, LABOR-1, LABOR-*,
      labor-d, LADIES and PLADIES with the GCN, and of LABOR-0 with
      GraphSAGE and with GATv2, through ``repro_torch.launch.train``'s
@@ -114,9 +132,10 @@ error exits non-zero:
 
 The line before the last is the ``kernels`` JSON object: per kernel,
 ``launches_by_path`` holds its count on each counted path (serve, serve
-full, serve gatv2, train <sampler> for each sampler, train sage, train
-gatv2, the weight-gradient path, serve lm gemma2-2b, serve lm
-stablelm-1.6b) and ``launches`` their sum.
+full, serve gatv2, weighted <sampler> for each weighted sampler, serve
+async, train <sampler> for each sampler, train sage, train gatv2, the
+weight-gradient path, serve lm gemma2-2b, serve lm stablelm-1.6b) and
+``launches`` their sum.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits 1 and prints no result.
 """
@@ -136,6 +155,7 @@ from pathlib import Path
 # GATv2's first layer allocates and frees (9.4 M, 256) tensors of 9.65 GB
 # in turn; growable segments keep the cached blocks from fragmenting
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -1521,6 +1541,7 @@ def phase_serve_path(ds, opts, path, sampler, model_name, depth, requests):
     from repro_torch.runtime.engine import TrainEngine
 
     args = serve.parser().parse_args([
+        "--workload", "gnn", "--driver", "off",
         "--device", DEV, "--dataset", "products",
         "--scale", str(opts.scale), "--sampler", sampler,
         "--model", model_name, "--fanouts", ",".join(["10"] * depth),
@@ -1568,6 +1589,238 @@ def phase_serve_path(ds, opts, path, sampler, model_name, depth, requests):
     window = profile_window(
         lambda i: engines[0].infer(model, data, seeds, key), n_req)
     emit({"phase": path, "window_requests": n_req, **window})
+    return launches
+
+
+#: phase 3's weighted paths: sampler -> kernels only that sampler runs
+WEIGHTED_SAMPLERS = {"labor-0": (), "ns": ("segment_select",),
+                     "labor-1": (), "ladies": ("masked_cdf_draw",),
+                     "pladies": ()}
+
+
+def phase_weighted(ds, data, opts, seeds, key):
+    """Phase 3, weighted graphs (LABOR §A.7): phase 3's CSR with one
+    weight per edge from numpy at ``--seed``, uniform in [0.1, 2); each
+    sampler of WEIGHTED_SAMPLERS samples 3 layers of the first request
+    on the kernel path (counts zeroed before, read after: its own path)
+    and on the plain path on the card: every integer block field bit for
+    bit, the weights to rtol = atol = 1e-5. Prints the per-layer
+    vertices and edges beside the unweighted ones and the loop
+    conditions read on the host (none for LABOR-0)."""
+    from repro_torch.core import cs_solve, samplers
+    from repro_torch.core.interface import INT_FIELDS
+    from repro_torch.graph.csr import Graph
+
+    t0 = time.perf_counter()
+    w = np.random.default_rng(opts.seed).uniform(
+        0.1, 2.0, data.graph.num_edges).astype(np.float32)
+    graph = Graph(data.graph.indptr, data.graph.indices,
+                  torch.from_numpy(w).to(DEV))
+    emit({"phase": "weighted", "weights": int(w.shape[0]),
+          "weights_mib": w.nbytes / 2**20,
+          "setup_seconds": time.perf_counter() - t0})
+    paths = {}
+    for name, own in WEIGHTED_SAMPLERS.items():
+        sampler = samplers.from_dataset(name, ds, batch_size=1024,
+                                        fanouts=(10, 10, 10), safety=2.0)
+        salts = sampler.spec.salts(key)
+        with torch.no_grad():
+            sampler.sample(graph, seeds, salts)      # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            cs_solve.reset_host_reads()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            blocks_k = sampler.sample(graph, seeds, salts, backend="cuda")
+            ev[1].record()
+            torch.cuda.synchronize()
+        launches = launch_counts()
+        host_reads = dict(cs_solve.HOST_READS)
+        if any(bool(b.overflow) for b in blocks_k):
+            fail(f"weighted {name}: a cap overflowed")
+        for k in SAMPLING + own:
+            if launches[k] <= 0:
+                fail(f"kernel {k} was not launched on the weighted {name} "
+                     "path")
+        if name == "labor-0" and sum(host_reads.values()):
+            fail(f"weighted labor-0 read {host_reads} on the host")
+        with torch.no_grad():
+            blocks_e = sampler.sample(graph, seeds, salts, backend="eager")
+            plain = sampler.sample(data.graph, seeds, salts, backend="cuda")
+        torch.cuda.synchronize()
+        for layer, (a, b) in enumerate(zip(blocks_k, blocks_e)):
+            for f in INT_FIELDS:
+                same(f"weighted {name} layer {layer} {f}", getattr(a, f),
+                     getattr(b, f))
+        err = max(allclose_or_fail(f"weighted {name} layer {i} weight",
+                                   a.weight, b.weight)
+                  for i, (a, b) in enumerate(zip(blocks_k, blocks_e)))
+        emit({"phase": "weighted", "sampler": name, "launches": launches,
+              "loop_host_reads": host_reads, "sample_ms":
+              ev[0].elapsed_time(ev[1]), "weight_max_abs_err": err,
+              "caps": [c.__dict__ for c in sampler.caps],
+              "num_next": [int(b.num_next) for b in blocks_k],
+              "num_edges": [int(b.num_edges) for b in blocks_k],
+              "unweighted_num_next": [int(b.num_next) for b in plain],
+              "unweighted_num_edges": [int(b.num_edges) for b in plain]})
+        paths[f"weighted {name}"] = launches
+        del blocks_k, blocks_e, plain
+    del graph
+    torch.cuda.empty_cache()
+    return paths
+
+
+#: phase 3's async traffic: 256 Zipfian requests of 64 seeds, coalesced
+#: into 16 dispatches of 1024; the caches' flags of the cache-on run
+ASYNC_TRAFFIC = ["--requests", "256", "--request-size", "64", "--trace",
+                 "zipf", "--zipf-a", "1.1"]
+ASYNC_CACHES = ["--feature-cache", "262144", "--hidden-cache", "16384",
+                "--max-age", "0", "--cache-policy", "fifo"]
+
+
+def phase_serve_async(built, opts):
+    """Phase 3, the async driver: LABOR-0 GCN through
+    ``serve_gnn_driver``'s path on ASYNC_TRAFFIC, once with the caches of
+    ASYNC_CACHES (counts zeroed before, read after: the ``serve async``
+    path) and once with both caches off. Every ticket's logits equal,
+    cache-on against cache-off, bit for bit; the first dispatch
+    recomputed on the kernel and the plain path on the card (blocks bit
+    for bit, logits to rtol = atol = 1e-4, the tickets' logits equal to
+    the kernel path's); then 5 warm dispatches under torch.profiler and
+    one cache lookup at layer 2's shape timed with CUDA events beside
+    its bytes bound."""
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.kernels.frontier import ops as fk
+    from repro_torch.kernels.frontier import ref as fr
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import TrainEngine
+    from repro_torch.serving.metrics import ServingStats
+
+    ds, engine, data, model, labels = built
+    base = ["--workload", "gnn", "--driver", "async", "--device", DEV,
+            "--dataset", "products", "--scale", str(opts.scale),
+            "--sampler", "labor-0", "--fanouts", "10,10,10", "--hidden",
+            "256", "--batch", "1024", "--seed", str(opts.seed)]
+    runs = {}
+    for name, flags in (("on", ASYNC_CACHES), ("off", [])):
+        args = serve.parser().parse_args(base + ASYNC_TRAFFIC + flags)
+        eng = TrainEngine(engine.sampler, device=DEV)
+        run_built = (ds, eng, data, model, labels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        unique_misses = []
+        record = ServingStats.record_cache
+
+        def spy(self, m):
+            unique_misses.append(int(m.get("unique_misses", 0)))
+            record(self, m)
+
+        ServingStats.record_cache = spy
+        reset_launches()
+        try:
+            _, requests, driver, tickets = serve.run_gnn_driver(args,
+                                                                run_built)
+        finally:
+            ServingStats.record_cache = record
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        report = serve.driver_report(args, run_built, requests, driver,
+                                     tickets)
+        runs[name] = (args, eng, driver, tickets, launches)
+        emit({"phase": "serve async", "caches": name, "report": report,
+              "launches": launches, "unique_misses": unique_misses,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if report["requests_served"] != 256 or any(
+                t.status != "ok" for t in tickets):
+            fail(f"serve async (caches {name}): {report}")
+    args, eng, driver, tickets, launches = runs["on"]
+    n_batch = driver.stats.batches
+    for k in SAMPLING + ("spmm",):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the serve async path")
+    # the sampler's 3 a dispatch (grow retries included), and one lookup a
+    # dispatch per cache
+    attempts = n_batch + driver.stats.grow_events
+    if launches["hash_dedup"] != 5 * attempts:
+        fail(f"serve async: {launches['hash_dedup']} hash_dedup launches "
+             f"in {attempts} dispatches, expected 5 a dispatch")
+    for i, (a, b) in enumerate(zip(tickets, runs["off"][3])):
+        if not np.array_equal(a.logits, b.logits):
+            fail(f"serve async ticket {i}: cache-on and cache-off logits "
+                 "differ")
+
+    # the first dispatch again, on the kernel and the plain path
+    first = [t for t in tickets if t.rid <= 1024 // 64]
+    seeds = torch.from_numpy(np.concatenate([t.seeds for t in first])).to(
+        DEV)
+    key = rng_lib.fold_in(rng_lib.key(args.seed + 1), 1)
+    engines = [TrainEngine(eng.sampler, device=DEV, backend=b)
+               for b in ("cuda", "eager")]
+    out = [e.infer_blocks(model, data, seeds, key) for e in engines]
+    torch.cuda.synchronize()
+    (logits_k, flags_k, blocks_k), (logits_e, flags_e, blocks_e) = out
+    compare_blocks(blocks_k, blocks_e, "serve async dispatch 1")
+    same("serve async dispatch 1 overflow flags", flags_k, flags_e)
+    if bool(flags_k.any()) or not bool(torch.isfinite(logits_k).all()):
+        fail("serve async dispatch 1: overflow or non-finite logits")
+    err = (logits_k - logits_e).abs().max().item()
+    if not torch.allclose(logits_k, logits_e, rtol=1e-4, atol=1e-4):
+        fail(f"serve async dispatch 1 logits differ from the plain "
+             f"versions by {err}")
+    served = np.concatenate([t.logits for t in first])
+    if not np.array_equal(served, logits_k.cpu().numpy()):
+        fail("serve async dispatch 1: the tickets' logits differ from the "
+             "kernel path's")
+    st = driver.stats
+    emit({"phase": "serve async", "recompute": "dispatch 1, plain path on "
+          "the card", "blocks_bit_exact": True,
+          "logits_max_abs_err": err, "tickets_equal_kernel_path": True,
+          "cache_on_equals_off_tickets": len(tickets),
+          "dispatches": n_batch, "latency_ms_p50": st.percentile_ms(50),
+          "latency_ms_p99": st.percentile_ms(99),
+          "nodes_per_sec": st.nodes_per_sec, "hit_rate": st.hit_rate,
+          "feat_hits": st.feat_hits, "feat_misses": st.feat_misses,
+          "num_next": [int(b.num_next) for b in blocks_k],
+          "next_cap": [b.next_cap for b in blocks_k]})
+
+    # 5 warm dispatches of the cache-aware request, under the profiler
+    fn = eng.cached_infer_fn(driver.feature_cache, driver.hidden_cache)
+    fc, hc = driver.cache_states
+    metrics = []
+
+    def dispatch(i):
+        out = fn(model, data.graph, data.features, fc, hc, seeds, key)
+        metrics.append(out[4])
+
+    dispatch(0)
+    metrics.clear()
+    window = profile_window(dispatch, 5)
+    emit({"phase": "serve async", "window_dispatches": 5,
+          "unique_misses_per_dispatch": [int(m["unique_misses"])
+                                         for m in metrics], **window})
+
+    # one cache lookup at layer 2's shape: the deepest block's next_seeds
+    # against the feature cache's key column
+    ids = blocks_k[-1].next_seeds
+    largs = (ids, ids >= 0, fc.keys, ids.shape[0])
+    same("serve async cache lookup", tuple(fk.hash_dedup(*largs)),
+         tuple(fr.hash_dedup(*largs)))
+    T, C = ids.shape[0], fc.keys.shape[0]
+
+    def unique_lookup():
+        u = torch.unique(torch.cat([fc.keys, ids]))
+        return torch.searchsorted(u, ids)
+
+    emit({"phase": "serve async", "cache_lookup": {
+        "T": T, "C": C, "live": int((ids >= 0).sum()),
+        "ms": cuda_ms(lambda: fk.hash_dedup(*largs), opts.reps),
+        "plain_ms": cuda_ms(lambda: fr.hash_dedup(*largs), opts.reps),
+        "library_ms": cuda_ms(unique_lookup, opts.reps),
+        # read ids and their mask, the keys; write new and slots
+        "bound_ms": (T * 5 + C * 4 + T * 8 + 5) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes"}})
+    del runs, out, blocks_k, blocks_e, logits_k, logits_e
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1995,6 +2248,7 @@ def main():
           "flash_attention_sass": tensor_core_sass(_build)})
 
     args = serve.parser().parse_args([
+        "--workload", "gnn", "--driver", "off",
         "--device", DEV, "--dataset", "products",
         "--scale", str(opts.scale), "--sampler", "labor-0",
         "--fanouts", "10,10,10", "--hidden", "256", "--batch", "1024",
@@ -2127,6 +2381,9 @@ def main():
              "serve gatv2": phase_serve_path(ds, opts, "serve gatv2",
                                              "labor-0", "gatv2", 3,
                                              opts.requests)}
+    # weighted graphs in every sampler kind, then the async driver
+    paths.update(phase_weighted(ds, data, opts, seeds0, key0))
+    paths["serve async"] = phase_serve_async(built, opts)
 
     # -- phase 4: train every path through the launcher's path ------------
     paths.update({f"train {k}": v for k, v in phase_train(ds, opts).items()})

@@ -24,13 +24,16 @@ through :func:`_segment_sum_sorted`, a reduction per contiguous segment
 in a fixed order (``torch.segment_reduce``, no atomics), so on the card
 every run and both graph-ops backends get the same floats; on the CPU
 each segment is summed in edge order, which is XLA's scatter order.
-Weighted graphs (``solve_cs_weighted``, §A.7) are not ported.
+:func:`solve_cs_weighted` (weighted graphs, §A.7) is a fixed 64-step
+bisection with no loop condition, so it reads nothing back to the host.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
+
+from repro_torch.core import rng as rng_lib
 
 #: dropped entries are spread over this many spill bins past the real
 #: segments: on the card, millions of atomic adds into one spill address
@@ -166,4 +169,71 @@ def solve_cs(pi_e: torch.Tensor, seed_slot: torch.Tensor, deg: torch.Tensor,
     if iters_out is not None:
         iters_out.append(i)
     c = torch.where(exact & valid, inv_pi_max, c)
+    return torch.where(valid, c, 0.0)
+
+
+def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of float32 ``x``, as
+    XLA's: torch's CPU ``sqrt`` is not correctly rounded on some inputs,
+    and a midpoint one ulp away flips a bisection step. The float64 root of a float32
+    rounds to the float32 root exactly (53 >= 2 * 24 + 2 bits)."""
+    return torch.sqrt(x.double()).float()
+
+
+def solve_cs_weighted(pi_e: torch.Tensor, a_e: torch.Tensor,
+                      seed_slot: torch.Tensor, deg: torch.Tensor, k,
+                      num_seeds: int, edge_mask: torch.Tensor,
+                      max_iters: int = 64, tol: float = 1e-6
+                      ) -> torch.Tensor:
+    """Weighted-graph c_s solve (paper §A.7, eq. 23; the reference's
+    arguments): c_s with
+
+        (1 / A_{*s}^2) (sum_t A_ts^2 / min(1, c_s pi_ts) - sum_t A_ts^2)
+            = 1/k - 1/d_s,
+
+    by ``max_iters`` bisection steps in log space on the monotone
+    left-hand side, from [1e-9, 1e9]. Every step runs; nothing is read
+    back to the host. ``tol`` is unused, as in the reference. Returns
+    c float32[S] (max 1/pi over the segment where k >= d, 0 for padding
+    seeds)."""
+    del tol
+    S = num_seeds
+    dev = pi_e.device
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    pi_e = torch.where(edge_mask, torch.clamp(pi_e, min=1e-20), one)
+    a2 = torch.where(edge_mask, a_e * a_e, 0.0)
+    slot = torch.where(edge_mask, seed_slot, -1)
+    offsets = segment_offsets(slot, S)
+    degf = deg.to(torch.float32)
+    kf = torch.broadcast_to(torch.as_tensor(k, dtype=torch.float32,
+                                            device=dev), (S,))
+    valid = deg > 0
+
+    a_sum = _segment_sum_sorted(torch.where(edge_mask, a_e, 0.0), offsets)
+    a2_sum = _segment_sum_sorted(a2, offsets)
+    v_target = torch.where(valid, one / torch.clamp(kf, min=1e-9)
+                           - one / torch.clamp(degf, min=1.0), 0.0)
+    # the target of sum_t A_ts^2 / min(1, c pi), rounded once as XLA
+    # contracts it
+    target = rng_lib.fma(v_target, torch.clamp(a_sum, min=1e-20) ** 2,
+                         a2_sum)
+    safe_slot = torch.clamp(slot, 0, S - 1).long()
+
+    def lhs(c):
+        p = torch.clamp(c[safe_slot] * pi_e, max=1.0)
+        return _segment_sum_sorted(
+            torch.where(edge_mask, a2 / torch.clamp(p, min=1e-20), 0.0),
+            offsets)
+
+    # lhs decreases in c: bisect in log space, the midpoint in float32
+    lo = torch.full((S,), 1e-9, dtype=torch.float32, device=dev)
+    hi = torch.full((S,), 1e9, dtype=torch.float32, device=dev)
+    for _ in range(max_iters):
+        mid = _sqrt_f32(lo * hi)
+        too_low = lhs(mid) > target          # c must grow
+        lo, hi = torch.where(too_low, mid, lo), torch.where(too_low, hi, mid)
+    c = _sqrt_f32(lo * hi)
+    inv_pi_max = _segment_max(torch.where(edge_mask, one / pi_e, 0.0),
+                              offsets)
+    c = torch.where(kf >= degf, inv_pi_max, c)
     return torch.where(valid, c, 0.0)

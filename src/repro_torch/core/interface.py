@@ -162,6 +162,11 @@ class SamplerSpec:
         return rng_lib.layer_salts_from_key(key, self.num_layers,
                                             shared=self.shared_salts)
 
+    def salts_from_uint32(self, salt: int) -> List[int]:
+        """Per-layer uint32 salts from a raw uint32 salt (host ints)."""
+        return rng_lib.layer_salts_from_uint32(salt, self.num_layers,
+                                               shared=self.shared_salts)
+
     def with_caps(self, caps: Sequence[LayerCaps]) -> "SamplerSpec":
         return dataclasses.replace(self, caps=tuple(caps))
 
@@ -195,6 +200,14 @@ class Sampler:
     def sample_with_key(self, graph, seeds: torch.Tensor, key, *,
                         backend: Optional[str] = None) -> List[SampledLayer]:
         return self.sample(graph, seeds, self.spec.salts(key),
+                           backend=backend)
+
+    def sample_with_salt(self, graph, seeds: torch.Tensor, salt: int, *,
+                         backend: Optional[str] = None
+                         ) -> List[SampledLayer]:
+        """Multi-layer sampling from a raw uint32 salt, remixed per layer
+        by :meth:`SamplerSpec.salts_from_uint32`."""
+        return self.sample(graph, seeds, self.spec.salts_from_uint32(salt),
                            backend=backend)
 
     def with_caps(self, caps: Sequence[LayerCaps]) -> "Sampler":

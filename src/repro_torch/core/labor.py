@@ -23,9 +23,11 @@ match the reference bit for bit. LABOR-i and LABOR-* decide through
 float sums (c_s, E[|T|]), summed here in a fixed order: on the CPU the
 per-seed sums equal XLA's, while the totals of the convergence test
 may differ in the last bit. The LABOR-* loop reads its condition on
-the host once per iteration (``cs_solve.HOST_READS``). Weighted graphs
-(§A.7) and the dense partition-local mode of the multi-device engine
-are not ported and raise ``NotImplementedError``.
+the host once per iteration (``cs_solve.HOST_READS``). On a weighted
+graph (§A.7) pi starts at the edge weights A_ts and c_s comes from
+``solve_cs_weighted``; ``importance_iters`` is not consulted there, as
+in the reference. The dense partition-local mode of the multi-device
+engine is not ported.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch.core import rng as rng_lib
-from repro_torch.core.cs_solve import read_flag, solve_cs
+from repro_torch.core.cs_solve import read_flag, solve_cs, solve_cs_weighted
 from repro_torch.core.interface import (LayerCaps, SampledLayer, Sampler,
                                         SamplerSpec, build_block)
 from repro_torch.graph.csr import Graph, expand_seed_edges
@@ -184,15 +186,18 @@ def layer_inclusion(graph: Graph, seeds: torch.Tensor, salt: int, k: int,
     """The sampling decision of one layer, before the block epilogue:
     (expanded neighbourhood, include bool[expand_cap], 1/p_ts
     float32[expand_cap])."""
-    if graph.weights is not None:
-        raise NotImplementedError("weighted graphs (§A.7, solve_cs_weighted) "
-                                  "are not ported")
     S = seeds.shape[0]
     exp = expand_seed_edges(graph, seeds, caps.expand_cap, backend=backend)
     src, slot, mask = exp["src"], exp["seed_slot"], exp["mask"]
-    pi_e, c = run_importance_iterations(
-        graph, exp, k, S, importance_iters, converge_tol, converge_max_iters,
-        fast_solve, backend=backend)
+    if graph.weights is None:
+        pi_e, c = run_importance_iterations(
+            graph, exp, k, S, importance_iters, converge_tol,
+            converge_max_iters, fast_solve, backend=backend)
+    else:
+        # weighted (§A.7): per-edge pi starts at A_ts
+        a_e = exp["edge_weight"]
+        pi_e = torch.where(mask, a_e, 1.0)
+        c = solve_cs_weighted(pi_e, a_e, slot, exp["deg"], k, S, mask)
 
     safe_slot = torch.clamp(slot, 0, S - 1).long()
     if per_edge_rng:
@@ -263,10 +268,10 @@ def sample_with_salt(cfg: LaborConfig, caps: Sequence[LayerCaps],
                      graph: Graph, seeds: torch.Tensor, salt: int, *,
                      backend: Optional[str] = None) -> List[SampledLayer]:
     """Multi-layer sampling from a raw uint32 salt: layer salts are
-    remixed from it unless ``layer_dependency`` is set."""
-    salts = rng_lib.layer_salts_from_uint32(salt, len(cfg.fanouts),
-                                            shared=cfg.layer_dependency)
-    return sample_with_salts(cfg, caps, graph, seeds, salts, backend=backend)
+    remixed from it unless ``layer_dependency`` is set
+    (``Sampler.sample_with_salt`` of the configured sampler)."""
+    return LaborSampler.build(cfg, caps).sample_with_salt(
+        graph, seeds, salt, backend=backend)
 
 
 def _labor_name(cfg: LaborConfig) -> str:

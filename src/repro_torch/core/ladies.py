@@ -24,8 +24,9 @@ run. The
 water-fill's totals are ``torch.sum``s, which may differ from the
 reference's in the last bit. Its grow loop (at most 20 iterations, as
 ``hi`` stops below 1e12) and its 50 bisection steps run with the state
-frozen on the device: no host read. Weighted graphs and the dense
-partition-local mode are not ported.
+frozen on the device: no host read. On a weighted graph (§A.7) each
+edge's column-norm term carries A_ts^2. The dense partition-local mode
+is not ported.
 """
 from __future__ import annotations
 
@@ -46,16 +47,20 @@ GROW_STEPS = 20
 
 
 def _edge_contrib(exp: dict) -> torch.Tensor:
-    """Per expanded edge: 1 / d_s^2, the column-norm term each edge
-    contributes to its source's p_t (A_ts = 1: unweighted graphs)."""
+    """Per expanded edge: A_ts^2 / d_s^2, the column-norm term each edge
+    contributes to its source's p_t (A_ts = 1 on an unweighted graph)."""
     slot, mask, deg = exp["seed_slot"], exp["mask"], exp["deg"]
     degf = torch.clamp(deg.to(torch.float32), min=1.0)
     d = degf[torch.clamp(slot, 0, deg.shape[0] - 1).long()]
-    return torch.where(mask, torch.ones_like(d) / d ** 2, 0.0)
+    contrib = torch.where(mask, torch.ones_like(d) / d ** 2, 0.0)
+    ew = exp.get("edge_weight")
+    if ew is not None:
+        contrib = contrib * torch.where(mask, ew ** 2, 0.0)
+    return contrib
 
 
 def _layer_probs(graph: Graph, exp: dict, num_vertices: int) -> torch.Tensor:
-    """p_t ∝ sum_s 1 / d_s^2 over a dense vertex vector (0 outside
+    """p_t ∝ sum_s A_ts^2 / d_s^2 over a dense vertex vector (0 outside
     N(S)): the oracle the candidate-frontier path is tested against.
     Not used on any sampling path."""
     del graph
@@ -110,8 +115,6 @@ def sample_layer_ladies(graph: Graph, seeds: torch.Tensor, salt: int, n: int,
     """One LADIES (or, with ``poisson``, PLADIES) layer from a uint32
     ``salt``. ``log``, when given, receives the layer's candidate
     probabilities ``p`` and PLADIES's ``lam``."""
-    if graph.weights is not None:
-        raise NotImplementedError("weighted graphs are not ported")
     exp = expand_seed_edges(graph, seeds, caps.expand_cap, backend=backend)
     src, mask = exp["src"], exp["mask"]
     E = src.shape[0]

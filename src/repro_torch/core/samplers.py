@@ -17,6 +17,12 @@ any i >= 0):
                                   fanouts=(10, 10, 10))
   blocks = sampler.sample_with_key(graph, seeds, key)
 
+Every entry accepts a weighted graph (``Graph.weights``, §A.7), as the
+reference's do: the LABOR family then solves c_s with
+``solve_cs_weighted`` (``importance_iters`` is not consulted), LADIES
+and PLADIES square the weights into the column norms, and ``full``
+ignores them.
+
 Adding a sampler: subclass ``Sampler`` (a ``sample(graph, seeds,
 salts)`` built on ``build_block``) and ``register(name, builder,
 doc=...)`` with ``builder(budgets, caps) -> Sampler``.

@@ -826,7 +826,9 @@ perm_upsweep(const int* keys, const uint8_t* valid, int E, const int* n_live,
 // 32) | key; a slot of an earlier epoch is empty, so the table is cached
 // per stream and never cleared (zeroed once when the epoch counter wraps).
 //   1. seeds: each seed claims its slot, value = its index;
-//   2. insert: each live value that claims a slot is new; it is appended,
+//   2. insert: a repeated seed's slot takes its smallest index (any copy
+//      may have claimed it); each live value that claims a slot is new;
+//      it is appended,
 //      with its slot as payload, to a list (one atomic a block a round),
 //      and its four digits are counted for the sort (the upsweep, folded
 //      in); the launch records the list's length and largest value, and
@@ -974,9 +976,9 @@ dedup_seeds(const int* seeds, int S, int E, const int* n_live,
 
 __global__ void __launch_bounds__(kSThreads)
 dedup_insert(const int* values, const uint8_t* vmask, int E,
-             const int* n_live, int S, unsigned long long* tkeys, int* tvals,
-             long table_cap, int* list_v, int* list_s, SortScratch sc,
-             unsigned epoch) {
+             const int* n_live, const int* seeds, int S,
+             unsigned long long* tkeys, int* tvals, long table_cap,
+             int* list_v, int* list_s, SortScratch sc, unsigned epoch) {
   __shared__ int s_hist[kMaxPasses][kRadix];
   __shared__ int s_v[kIRound], s_s[kIRound];  // a round's claims, in order
   __shared__ int s_max, s_first;
@@ -984,6 +986,20 @@ dedup_insert(const int* values, const uint8_t* vmask, int E,
     sc.tickets[threadIdx.x] = 0;      // the passes' tickets, launches later
   const int n = live_count(n_live, E);
   const Table tb = live_table(tkeys, tvals, S, n, table_cap);
+  // A seed value that repeats maps to its first index, as in the plain
+  // version (a stable order) and the reference's serial kernel: in
+  // dedup_seeds any copy may have claimed the slot, and its store is
+  // complete now, so the smallest index of the copies wins here. (A
+  // batch of requests may repeat a vertex; the slots on a seed's probe
+  // path were taken before it, so the find cannot stop early while values
+  // are inserted.)
+  for (long i = (long)blockIdx.x * kSThreads + threadIdx.x; i < S;
+       i += (long)gridDim.x * kSThreads) {
+    const int v = seeds[i];
+    if (v < 0) continue;
+    const int slot = probe_find(tb, v, epoch);
+    if (tb.vals[slot] > (int)i) atomicMin(tb.vals + slot, (int)i);
+  }
   for (int p = 0; p < kMaxPasses; ++p) s_hist[p][threadIdx.x] = 0;
   if (threadIdx.x == 0) {
     s_max = -1;
@@ -1182,8 +1198,8 @@ extern "C" int frontier_hash_dedup(const int* values, const uint8_t* vmask,
   const int insert_grid = grid_for(E, kSThreads);
   dedup_insert<<<insert_grid < kInsertGrid ? insert_grid : kInsertGrid,
                  kSThreads, 0, st>>>(
-      values, vmask, E, n_live, S, tkeys, tvals, table_cap, va, sa, sc,
-      epoch);
+      values, vmask, E, n_live, seeds, S, tkeys, tvals, table_cap, va, sa,
+      sc, epoch);
   const int grid =
       sort_grid(sc.tiles + (new_cap + kFillChunk - 1) / kFillChunk + 1);
   for (int p = 0; p < kMaxPasses; ++p) {

@@ -1,4 +1,5 @@
-from repro_torch.graph.csr import Graph, expand_seed_edges, from_coo
+from repro_torch.graph.csr import (Graph, expand_seed_edges, from_coo,
+                                   reverse)
 from repro_torch.graph.generators import (
     PAPER_DATASETS,
     DatasetSpec,
@@ -8,6 +9,6 @@ from repro_torch.graph.generators import (
 )
 
 __all__ = [
-    "Graph", "expand_seed_edges", "from_coo", "PAPER_DATASETS",
+    "Graph", "expand_seed_edges", "from_coo", "reverse", "PAPER_DATASETS",
     "DatasetSpec", "GraphDataset", "generate", "paper_dataset",
 ]

@@ -15,8 +15,9 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
-    """indptr int32[V + 1], indices int32[E]; ``weights`` is unused on
-    the ported path (uniform A_ts = 1) and kept for layout parity."""
+    """indptr int32[V + 1], indices int32[E]; ``weights`` optional
+    float32[E] edge weights A_ts (paper §A.7), ``None`` for uniform
+    weights (A_ts = 1)."""
     indptr: torch.Tensor
     indices: torch.Tensor
     weights: Optional[torch.Tensor] = None
@@ -28,6 +29,31 @@ class Graph:
     @property
     def num_edges(self) -> int:
         return self.indices.shape[0]
+
+    def degrees(self) -> torch.Tensor:
+        """In-degree of every vertex, int32[V]."""
+        return self.indptr[1:] - self.indptr[:-1]
+
+    def in_degree(self, v) -> torch.Tensor:
+        """In-degree of the vertices ``v`` (an int or int tensor)."""
+        v = torch.as_tensor(v, device=self.indptr.device).long()
+        return self.indptr[v + 1] - self.indptr[v]
+
+    def validate(self) -> None:
+        """Host-side structural validation, with the reference's
+        messages."""
+        indptr = self.indptr.cpu().numpy()
+        indices = self.indices.cpu().numpy()
+        if indptr[0] != 0 or indptr[-1] != indices.shape[0]:
+            raise ValueError("indptr does not cover indices")
+        if np.any(np.diff(indptr) < 0):
+            raise ValueError("indptr must be non-decreasing")
+        if indices.size and (indices.min() < 0
+                             or indices.max() >= self.num_vertices):
+            raise ValueError("indices out of range")
+        if (self.weights is not None
+                and tuple(self.weights.shape) != tuple(self.indices.shape)):
+            raise ValueError("weights shape mismatch")
 
     def to(self, device) -> "Graph":
         return Graph(
@@ -67,6 +93,18 @@ def from_coo(src: np.ndarray, dst: np.ndarray, num_vertices: int,
                                  device=device)))
 
 
+def reverse(graph: Graph) -> Graph:
+    """Reverse the edge directions (host-side), carrying the edge
+    weights; the result lives on ``graph``'s device."""
+    indptr = graph.indptr.cpu().numpy()
+    indices = graph.indices.cpu().numpy()
+    n = graph.num_vertices
+    dst = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    weights = None if graph.weights is None else graph.weights.cpu().numpy()
+    return from_coo(dst, indices.astype(np.int64), n, weights=weights,
+                    dedup=False, device=graph.indptr.device)
+
+
 def expand_seed_edges(graph: Graph, seeds: torch.Tensor, edge_cap: int, *,
                       backend: Optional[str] = None) -> dict:
     """Edge-centric CSR expansion with a static edge budget.
@@ -75,9 +113,11 @@ def expand_seed_edges(graph: Graph, seeds: torch.Tensor, edge_cap: int, *,
     buffers laid out segment-contiguously (all in-edges of seed 0, then
     seed 1, ...): ``seed_slot``, ``src`` (both -1 past the real edges),
     ``mask`` bool[edge_cap], ``seg_start``/``deg`` int32[S], ``total``
-    int32[] (may exceed ``edge_cap`` => overflow) and ``live`` int32[]
+    int32[] (may exceed ``edge_cap`` => overflow), ``live`` int32[]
     = min(total, edge_cap), the device-side length of the real prefix
-    that the frontier kernels bound their work by.
+    that the frontier kernels bound their work by, and ``edge_weight``
+    float32[edge_cap] (A_ts of each edge, 0 past the real prefix) when
+    ``graph.weights`` is set, else None.
 
     Bit-exact with the reference, including its clamped segment bumps
     when ``total > edge_cap``. The nonzero-degree row list goes through
@@ -117,5 +157,8 @@ def expand_seed_edges(graph: Graph, seeds: torch.Tensor, edge_cap: int, *,
     gidx = torch.where(mask, row_start + offset_in_seg, 0).long()
     src = torch.where(mask, graph.indices[gidx], -1)
     seed_slot = torch.where(mask, seed_slot, -1)
+    ew = (None if graph.weights is None
+          else torch.where(mask, graph.weights[gidx], 0.0))
     return dict(seed_slot=seed_slot, src=src, mask=mask,
-                seg_start=seg_start, deg=deg, total=total, live=live)
+                seg_start=seg_start, deg=deg, total=total, live=live,
+                edge_weight=ew)

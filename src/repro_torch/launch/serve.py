@@ -1,28 +1,38 @@
 """Serving on the card (twin of ``repro.launch.serve``).
 
-GNN node classification, the synchronous path: a stream of seed
-requests over the validation ids (``--request-size`` seeds each, padded
-to ``--batch``; a scan, or a Zipfian draw with ``--trace zipf
---zipf-a``), each answered by one sample -> gather -> model forward
-through ``TrainEngine``, with the overflow-retry contract and the same
-JSON report as the reference's ``--driver off``:
+GNN node classification (``--workload gnn``): a stream of seed requests
+over the validation ids (``--request-size`` seeds each; a scan, or a
+Zipfian draw with ``--trace zipf --zipf-a``), answered by sample ->
+gather -> model forward through ``TrainEngine``, with the
+overflow-retry contract and the reference's JSON report. By default
+(``--driver async``) the requests go through the async serving driver
+(``repro_torch.serving``): they are coalesced into one fixed-shape
+``--batch``-seed dispatch, with optional device-resident feature and
+hidden-state caches (``--feature-cache``, ``--hidden-cache``,
+``--max-age``, ``--cache-policy``) and deadline accounting
+(``--deadline-ms``, ``--max-queue``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload gnn \\
       --dataset products --scale 0.25 --sampler labor-0 \\
-      --fanouts 10,10,10 --hidden 256 --batch 1024 --requests 8
+      --fanouts 10,10,10 --hidden 256 --batch 1024 --requests 256 \\
+      --request-size 64 --trace zipf --feature-cache 262144
 
-``--sampler`` takes any registry entry (``--list-samplers``); the
-default is the reference's ``full``, the exact full-neighbourhood
-aggregation. ``--device cuda`` (the default) runs the CUDA kernels and
-fails if there is no card; ``--device cpu`` runs the plain versions on
-the CPU. ``--model`` takes ``gcn`` (the default), ``sage`` or
-``gatv2``; its weights come from the model's init at ``key(seed)``, the
-reference's initialisation bit for bit, and the sampled sets for a
-given ``--seed`` are the same. ``--driver async`` is not ported yet.
+``--driver off`` is the synchronous path: one dispatch per request,
+each request padded to ``--batch``. ``--sampler`` takes any registry
+entry (``--list-samplers``); the default is the reference's ``full``,
+the exact full-neighbourhood aggregation. ``--device cuda`` (the
+default) runs the CUDA kernels and fails if there is no card;
+``--device cpu`` runs the plain versions on the CPU. ``--model`` takes
+``gcn`` (the default), ``sage`` or ``gatv2``; its weights come from the
+model's init at ``key(seed)``, the reference's initialisation bit for
+bit, and the sampled sets for a given ``--seed`` are the same. The
+reference's ``--ckpt-dir`` and ``--inject`` wait for the port of its
+checkpoint and fault-injection runtime.
 
-LM serving (``--workload lm``): greedy decode of a batch of random
-prompts from a model with random weights, the reference's
-``serve_lm``, at the full width of ``--arch`` (or ``--reduce``d):
+LM serving (``--workload lm``, the default workload, as in the
+reference): greedy decode of a batch of random prompts from a model
+with random weights, the reference's ``serve_lm``, at the full width of
+``--arch`` (or ``--reduce``d):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
       --arch gemma2-2b --batch 1 --prompt-len 32768 --gen 32
@@ -37,7 +47,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import sys
 import time
 
 import numpy as np
@@ -93,6 +102,8 @@ def gnn_trace(args, ds):
 def _accuracy(requests, answers, labels):
     correct = total = 0
     for seeds, logits in zip(requests, answers):
+        if logits is None:
+            continue
         pred = np.argmax(logits, -1)
         correct += int((pred == labels[seeds]).sum())
         total += len(seeds)
@@ -136,6 +147,56 @@ def serve_gnn_sync(args, built=None):
                   request_size=args.request_size or args.batch,
                   batch=args.batch,
                   accuracy=round(_accuracy(requests, answers, labels), 4))
+    print(json.dumps(report, indent=1))
+    return report
+
+
+def run_gnn_driver(args, built=None):
+    """The async path up to its answers: every request of the trace
+    submitted to a :class:`~repro_torch.serving.ServingDriver` (caches
+    from the flags, batch keys from ``key(seed + 1)``), then drained.
+    Returns (built, requests, driver, tickets)."""
+    from repro_torch.serving import HiddenCache, ServingDriver, VertexCache
+
+    built = built or build_gnn_serving(args)
+    ds, engine, data, model, _ = built
+    requests = gnn_trace(args, ds)
+    fc = (VertexCache(args.feature_cache, args.cache_policy)
+          if args.feature_cache else None)
+    hc = (HiddenCache(args.hidden_cache, max_age=args.max_age,
+                      policy=args.cache_policy)
+          if args.hidden_cache else None)
+    driver = ServingDriver(engine, model, data, batch_size=args.batch,
+                           feature_cache=fc, hidden_cache=hc,
+                           deadline_ms=args.deadline_ms,
+                           max_queue=args.max_queue, seed=args.seed + 1,
+                           cache_fault_limit=args.cache_fault_limit)
+    tickets = [driver.submit(r) for r in requests]
+    driver.drain()
+    return built, requests, driver, tickets
+
+
+def driver_report(args, built, requests, driver, tickets) -> dict:
+    """The reference's report of the async path."""
+    engine, labels = built[1], built[4]
+    report = driver.stats.report()
+    report.update(sampler=engine.sampler.name, backend=engine.backend,
+                  exact=engine.sampler.name == "full", driver="async",
+                  requests=args.requests,
+                  request_size=args.request_size or args.batch,
+                  batch=args.batch,
+                  accuracy=round(_accuracy(
+                      requests, [t.logits if t.status == "ok" else None
+                                 for t in tickets], labels), 4))
+    return report
+
+
+def serve_gnn_driver(args, built=None):
+    """The async serving path: the requests stream into the serving
+    driver, which coalesces them into the engine's fixed-shape dispatch
+    and scatters the per-seed logits back, the caches exploiting the
+    requests' skew. Prints and returns the reference's report."""
+    report = driver_report(args, *run_gnn_driver(args, built))
     print(json.dumps(report, indent=1))
     return report
 
@@ -198,11 +259,11 @@ def serve_lm(args, built=None):
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=["lm", "gnn"], default="gnn")
+    ap.add_argument("--workload", choices=["lm", "gnn"], default="lm")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    ap.add_argument("--batch", type=int, default=None,
-                    help="gnn: the seed-buffer shape of one dispatch "
-                         "(default 1024); lm: the decode batch (default 4)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="lm: the decode batch; gnn: the seed-buffer shape "
+                         "of one dispatch (the coalescing target)")
     # lm
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--reduce", action="store_true")
@@ -230,18 +291,36 @@ def parser() -> argparse.ArgumentParser:
                          "validation ids, or a Zipfian draw")
     ap.add_argument("--zipf-a", type=float, default=1.1,
                     help="Zipf exponent of --trace zipf")
-    ap.add_argument("--driver", default="off", choices=["async", "off"])
+    ap.add_argument("--driver", default="async", choices=["async", "off"],
+                    help="async = the continuous-batching request driver "
+                         "(repro_torch.serving); off = one synchronous "
+                         "dispatch per request")
+    ap.add_argument("--feature-cache", type=int, default=0,
+                    help="device-resident feature-cache slots (0 = off; "
+                         "the logits are the same either way)")
+    ap.add_argument("--hidden-cache", type=int, default=0,
+                    help="stale hidden-state cache slots (0 = off)")
+    ap.add_argument("--max-age", type=int, default=0,
+                    help="hidden-cache staleness bound in serve steps "
+                         "(0 = never served stale)")
+    ap.add_argument("--cache-policy", default="fifo",
+                    choices=["fifo", "freq"],
+                    help="cache slot eviction policy")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline for timeout and SLO "
+                         "accounting (async driver)")
+    ap.add_argument("--max-queue", type=int, default=1024,
+                    help="pending requests before admission refuses "
+                         "(backpressure)")
+    ap.add_argument("--cache-fault-limit", type=int, default=2,
+                    help="non-finite-logit faults under an enabled cache "
+                         "before the driver turns the caches off")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.batch is None:
-        args.batch = 4 if args.workload == "lm" else 1024
-    if args.workload == "gnn" and args.driver != "off":
-        sys.exit("repro_torch.launch.serve: --driver async is not ported "
-                 "yet; use --driver off")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda was asked for but CUDA is not "
                            "available (use --device cpu)")
@@ -250,6 +329,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     if args.workload == "lm":
         return serve_lm(args)
+    if args.driver == "async":
+        return serve_gnn_driver(args)
     return serve_gnn_sync(args)
 
 

@@ -11,9 +11,12 @@ read one step late by the :class:`~repro_torch.data.gnn_loader.
 OverflowLedger`, and an overflowed batch is replayed with doubled caps.
 An infer request (:meth:`TrainEngine.infer`) samples, gathers and runs
 the forward; :meth:`TrainEngine.infer_with_retry` doubles every cap and
-re-runs the same key when a flag is set. The guardrail, gradient
-compression and the multi-device engine are not ported: asking for
-them raises.
+re-runs the same key when a flag is set; :meth:`TrainEngine.
+cached_infer_fn` is the same request with the feature gather routed
+through a device-resident feature cache and, optionally, the deepest
+layer's output through a hidden-state cache (``repro_torch.serving``).
+The guardrail, gradient compression and the multi-device engine are not
+ported: asking for them raises.
 """
 from __future__ import annotations
 
@@ -32,14 +35,18 @@ from repro_torch.optim import adam
 from repro_torch.runtime.guard import RetryPolicy
 
 
-def gather_feats(features: torch.Tensor, block) -> torch.Tensor:
-    """Rows of ``features`` for ``block.next_seeds``; padding slots (-1)
-    read no row and give zeros (the reference's ``mode="fill"``: a
-    negative torch index would silently read the last row)."""
-    idx = block.next_seeds
-    valid = idx >= 0
-    rows = features[torch.where(valid, idx, 0).long()]
+def take_rows(features: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``features`` at ``ids``; padding ids (-1) read no row and
+    give zeros (the reference's ``mode="fill"``: a negative torch index
+    would silently read the last row)."""
+    valid = ids >= 0
+    rows = features[torch.where(valid, ids, 0).long()]
     return torch.where(valid[:, None], rows, 0.0)
+
+
+def gather_feats(features: torch.Tensor, block) -> torch.Tensor:
+    """Rows of ``features`` for ``block.next_seeds`` (zeros at -1)."""
+    return take_rows(features, block.next_seeds)
 
 
 def seed_labels(labels: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
@@ -118,6 +125,8 @@ class TrainEngine:
         # bumped by grow(): the first request at new caps is tagged as a
         # set-up event by the serving metrics
         self.generation = 0
+        #: cache-aware infer functions by (feature cache, hidden cache)
+        self._infer_cached: Dict[Any, Any] = {}
 
     def init_state(self, model) -> EngineState:
         return EngineState(opt=adam.init_state(
@@ -135,9 +144,11 @@ class TrainEngine:
         return self.make_data(ds.graph, ds.features, ds.labels)
 
     def grow(self):
-        """Double every static cap (the logarithmic retry schedule)."""
+        """Double every static cap (the logarithmic retry schedule); the
+        cache-aware infer functions are built anew for the new caps."""
         self.sampler = self.sampler.doubled()
         self.generation += 1
+        self._infer_cached.clear()
 
     # ------------------------------------------------------------------
     # the train step, in the pieces it runs
@@ -269,3 +280,69 @@ class TrainEngine:
             describe="sampling overflow persisted after cap doubling "
                      "while serving")
         return out[0], grows["n"]
+
+    def cached_infer_fn(self, feature_cache=None, hidden_cache=None):
+        """The cache-aware infer request: :meth:`infer` with the feature
+        gather routed through a device-resident
+        :class:`~repro_torch.serving.cache.VertexCache` (only the unique
+        misses are read from ``features``) and, optionally, the deepest
+        layer's output substituted from a
+        :class:`~repro_torch.serving.cache.HiddenCache` under its
+        staleness bound. Signature, as the reference's::
+
+            infer_c(model, graph, features, fc_state, hc_state, seeds,
+                    key) -> (logits, overflow_flags, fc_state',
+                             hc_state', cache_metrics)
+
+        ``None`` stands for a disabled cache's state. Feature-cache rows
+        are verbatim feature rows, so the logits equal :meth:`infer`'s
+        bit for bit; so do they with the hidden cache at ``max_age=0``.
+        The hidden cache runs the model's layers one by one
+        (``model.layers``) and raises ``ValueError`` for a model without
+        them. One function per cache pair is kept, and :meth:`grow`
+        drops them."""
+        cache_key = (feature_cache, hidden_cache)
+        fn = self._infer_cached.get(cache_key)
+        if fn is not None:
+            return fn
+        sampler, backend = self.sampler, self.backend
+
+        @torch.no_grad()
+        def infer_c(model, graph, features, fc_state, hc_state, seeds,
+                    key):
+            if hidden_cache is not None and not hasattr(model, "layers"):
+                raise ValueError(
+                    "the hidden-state cache needs a per-layer model (one "
+                    "with .layers, as repro_torch.models.gnn's); got "
+                    f"{type(model).__name__!r}")
+            blocks = sampler.sample(graph, seeds, sampler.spec.salts(key),
+                                    backend=backend)
+            metrics = {}
+            if feature_cache is not None:
+                feats, fc_state_out, fm = feature_cache.gather(
+                    fc_state, blocks[-1].next_seeds,
+                    lambda missed: take_rows(features, missed),
+                    backend=backend)
+                metrics.update(fm)
+            else:
+                feats, fc_state_out = gather_feats(features, blocks[-1]), None
+            if hidden_cache is None:
+                logits, hc_state_out = model(blocks, feats,
+                                             backend=backend), None
+            else:
+                L = len(blocks)
+                h = feats
+                for l, blk in enumerate(reversed(blocks)):
+                    h = model.layers[l](blk, h, is_last=l == L - 1,
+                                        backend=backend)
+                    if l == 0 and L > 1:
+                        # the deepest layer's output, keyed by its seeds
+                        h, hc_state, hm = hidden_cache.substitute(
+                            hc_state, blk.seeds, h, backend=backend)
+                        metrics.update(hm)
+                logits, hc_state_out = h, hc_state
+            return (logits, overflow_flags(blocks), fc_state_out,
+                    hc_state_out, metrics)
+
+        self._infer_cached[cache_key] = infer_c
+        return infer_c

@@ -2,12 +2,13 @@
 ``repro.serving.metrics``, numpy only, so both launchers print the same
 report keys).
 
-Set-up time is not latency: the first dispatch (which builds the CUDA
-kernels on first use and warms the device) and every
-``engine.grow()`` retry are recorded as tagged "compile" events,
-excluded from the warm p50/p99 and reported separately. Only the
-synchronous ``--driver off`` path is ported so far; the cache counters
-stay at zero.
+One recorder serves both serving paths: the async driver
+(:mod:`repro_torch.serving.driver`) and the synchronous ``--driver off``
+path of ``launch/serve.py``. Set-up time is not latency: the first
+dispatch (which builds the CUDA kernels on first use and warms the
+device) and every ``engine.grow()`` retry are recorded as tagged
+"compile" events, excluded from the warm p50/p99 and reported
+separately.
 """
 from __future__ import annotations
 

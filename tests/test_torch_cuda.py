@@ -437,6 +437,98 @@ def test_sort_kernels_after_a_skipped_epoch_and_the_wrap(cuda_device):
         assert fk._SCRATCH[(kernel, dev.index, stream)][1] == 3
 
 
+def _cache_inputs(g, C, T, dev, empty=0.4, hits=0.5, V=612_257):
+    """A feature cache's lookup: a key column of C slots holding distinct
+    vertex ids with -1 scattered over ``empty`` of it (a ``freq`` table
+    evicts anywhere), and T queried ids (the deepest layer's
+    ``next_seeds``: a -1 padded tail of a tenth) of which ``hits`` are
+    drawn from the keys, repeats included."""
+    n_keys = int(C * (1 - empty))
+    ids = torch.randperm(V, generator=g, device=dev)[:n_keys].to(torch.int32)
+    keys = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    keys[torch.randperm(C, generator=g, device=dev)[:n_keys]] = ids
+    q = torch.randint(0, V, (T,), generator=g, device=dev, dtype=torch.int32)
+    if n_keys:
+        pick = ids[torch.randint(0, n_keys, (T,), generator=g, device=dev)]
+        q = torch.where(torch.rand(T, generator=g, device=dev) < hits, pick,
+                        q)
+    q[T - T // 10:] = -1
+    return q, keys
+
+
+def _cache_lookup(q, keys):
+    """The lookup of ``VertexCache._lookup``: (plain, kernel) args."""
+    return (q, q >= 0, keys, q.shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,C,T,empty,hits", [
+    ("scattered empty slots", 262_144, 1_083_008, 0.4, 0.5),
+    ("keys outnumber the query", 262_144, 10_000, 0.2, 0.5),
+    ("cold table, all -1", 262_144, 300_000, 1.0, 0.0),
+    ("every query a hit", 262_144, 500_000, 0.0, 1.0),
+])
+def test_hash_dedup_at_the_cache_shapes(cuda_device, case, C, T, empty,
+                                        hits):
+    """hash_dedup as the serving caches call it (the queried ids against
+    the cache's key column as its "seeds"), bit for bit against its
+    plain version: shapes ``build_block`` never sends, which the
+    per-stream scratch must size for."""
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    q, keys = _cache_inputs(g, C, T, cuda_device, empty, hits)
+    args = _cache_lookup(q, keys)
+    got = fk.hash_dedup(*args)
+    want = fr.hash_dedup(*args)
+    for f, x, y in zip(want._fields, got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y), (case, f)
+    hit = (want.slots >= 0) & (want.slots < C)
+    if hits == 1.0:
+        assert int(want.num_new) == 0 and bool(hit[q >= 0].all())
+    if empty == 1.0:
+        assert not bool(hit.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,distinct", [(64, 5), (1024, 300),
+                                        (470_656, 20_000)])
+def test_hash_dedup_with_repeated_seeds(cuda_device, S, distinct):
+    """Seeds that repeat (a coalesced batch of requests that share
+    vertices): a value equal to a repeated seed maps to the seed's first
+    index, as in the plain version's stable order and the reference's
+    serial kernel, bit for bit, in 5 calls of the same inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    dev = cuda_device
+    seeds = torch.randint(0, distinct, (S,), generator=g, device=dev,
+                          dtype=torch.int32)
+    seeds[-S // 10:] = -1
+    E = 4 * S
+    values = torch.randint(0, 2 * distinct, (E,), generator=g, device=dev,
+                           dtype=torch.int32)
+    mask = torch.rand(E, generator=g, device=dev) < 0.9
+    for _ in range(5):
+        _dedup_equal(values, mask, seeds, E)
+
+
+@pytest.mark.cuda
+def test_hash_dedup_cache_lookups_in_a_row(cuda_device):
+    """30 cache lookups in a row on one stream, of growing and shrinking
+    key columns and queries, each checked after the last: the cached
+    table and lists, sized by the largest, stay right for the smaller."""
+    g = torch.Generator(device=cuda_device).manual_seed(29)
+    calls = []
+    for i in range(30):
+        C = int(torch.randint(1, 262_145, (1,), generator=g,
+                              device=cuda_device))
+        T = int(torch.randint(1, 400_000, (1,), generator=g,
+                              device=cuda_device))
+        q, keys = _cache_inputs(g, C, T, cuda_device, empty=(i % 5) / 4,
+                                hits=(i % 3) / 2)
+        args = _cache_lookup(q, keys)
+        calls.append((fr.hash_dedup, args, fk.hash_dedup(*args)))
+    torch.cuda.synchronize()
+    _check_calls(calls)
+
+
 def _device_ops(fn, calls):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

@@ -259,6 +259,7 @@ def test_port_modules_load_neither_jax_nor_repro():
         "import repro_torch.core.ladies, repro_torch.core.variance\n"
         "import repro_torch.core.samplers, repro_torch.core.cs_solve\n"
         "import repro_torch.kernels.edge_softmax.ops, repro_torch.models.gnn\n"
+        "import repro_torch.serving, repro_torch.serving.driver\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
