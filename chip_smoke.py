@@ -2,7 +2,8 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
   python3 chip_smoke.py [--scale 0.25] [--requests 8] [--steps 8] [--reps 20]
-                        [--kernels-only]
+                        [--kernels-only] [--parent-src DIR/src]
+  python3 chip_smoke.py --window-only [--src DIR/src]
 
 Phases, each printing JSON lines; any mismatch, build failure or launch
 error exits non-zero:
@@ -105,6 +106,35 @@ error exits non-zero:
      ``TrainEngine.step`` gives the device's busy time per step, its
      idle share in that same window and the top device kernels; steps/s,
      sampled vertices per step and peak memory are printed per path;
+  4b. the runtime (checkpoints, the guardrail, fault injection, the
+     pipelined driver), LABOR-0 GCN at phase 4's widths through
+     ``train_gnn``, ``max(--steps, 12)`` steps a run: (a) two clean
+     serial runs, which must agree bit for bit (the later comparisons are
+     held to the largest difference of these two), and a run with
+     ``guard="quarantine"`` equal to them bit for bit (counted path
+     ``train guarded``); one warm step with and without the guard under
+     ``torch.cuda.set_sync_debug_mode("warn")`` (the guard may add no
+     synchronizing call) and under the profiler (device operations,
+     busy ms); (b) ``nan_grad@3,corrupt_feats@6=1e8`` quarantined
+     (warmup 2): both fired, a nonfinite and a spike batch, 2 or more
+     quarantines, no rollback, all losses finite; (c) ``guard="rollback"``
+     with a checkpoint every 4 steps and ``torn_ckpt@1,corrupt_feats@9=1e8``:
+     one rollback, the torn step 8 skipped for step 4, the parameters the
+     clean run's; (d) ``run_with_restarts`` over a run preempted at step 7
+     (checkpoints every 4): one restart, the history resumed at step 5,
+     the parameters the clean run's; (e) ``serve_gnn_driver``'s path with
+     ``--ckpt-dir`` of (c) (counted path ``serve checkpoint``): the
+     restored parameters and dispatch 1's logits equal the in-memory
+     model's bit for bit; then the driver on a background thread with
+     both caches on and ``SERVE_FAULTS``: every ticket served, the
+     cache-off fallback taken, the pump restarted by the watchdog; (f)
+     ``pipeline`` ``prefetch`` and ``full`` (counted paths ``train
+     prefetch``, ``train full``): sampled vertices and edges per step and
+     the parameters equal the serial run's; 5 warm steps of ``off``,
+     ``prefetch`` and ``full`` under the profiler (busy ms, operations,
+     idle share) and 5 timed by the host clock (steps/s); with
+     ``--parent-src`` also the ``off`` window of that tree (a child
+     process of ``--window-only``, which builds that tree's kernels);
   5. where the serving time goes: one warm request split into sample /
      gather / forward with CUDA events; then torch.profiler over a
      window of warm requests, as for training;
@@ -134,7 +164,8 @@ The line before the last is the ``kernels`` JSON object: per kernel,
 ``launches_by_path`` holds its count on each counted path (serve, serve
 full, serve gatv2, weighted <sampler> for each weighted sampler, serve
 async, train <sampler> for each sampler, train sage, train gatv2, the
-weight-gradient path, serve lm gemma2-2b, serve lm stablelm-1.6b) and
+weight-gradient path, train guarded, train prefetch, train full, serve
+checkpoint, serve lm gemma2-2b, serve lm stablelm-1.6b) and
 ``launches`` their sum.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits 1 and prints no result.
@@ -1527,6 +1558,395 @@ def phase_train(ds, opts):
     return paths
 
 
+#: the runtime phase's training runs (at least 12 steps)
+RUNTIME_STEPS = 12
+#: the runtime phase's serving faults, by batch ordinal (stall, cache) and
+#: pump iteration (death)
+SERVE_FAULTS = "stall_stage@2=0.05,cache_corrupt@3,pump_death@4"
+
+
+def train_window(ds, cfg, mode, n=5):
+    """A fresh LABOR-0 GCN run of ``cfg`` through ``TrainEngine.step``
+    (``mode`` "off") or the pipelined driver ("prefetch", "full"): 3
+    warm steps, then ``n`` steps under torch.profiler (busy ms, device
+    operations and idle share a step) and ``n`` more timed by the host
+    clock (ending in a synchronise) for steps/s. Uses only the API of
+    the serial engine for "off", so ``--window-only`` can run it against
+    an earlier tree of the port."""
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.core import samplers
+    from repro_torch.data.gnn_loader import SeedBatches
+    from repro_torch.models.gnn import gcn_init
+    from repro_torch.optim import adam
+    from repro_torch.runtime.engine import TrainEngine
+
+    sampler = samplers.from_dataset(
+        "labor-0", ds, batch_size=cfg["batch_size"],
+        fanouts=cfg["fanouts"], safety=2.0)
+    eng = TrainEngine(sampler, adam.AdamConfig(lr=cfg["lr"]), device=DEV)
+    data = eng.make_data_from_dataset(ds)
+    model = gcn_init(rng_lib.key(cfg["seed"]), ds.features.shape[1],
+                     cfg["hidden"], int(ds.labels.max()) + 1,
+                     len(cfg["fanouts"]), device=DEV)
+    state = eng.init_state(model)
+    batches = SeedBatches(ds.train_idx, cfg["batch_size"], seed=cfg["seed"],
+                          device=DEV)
+    base = rng_lib.key(cfg["seed"] + 1)
+    driver = None
+    if mode != "off":
+        from repro_torch.runtime.pipeline import PipelinedEngine
+        driver = PipelinedEngine(eng, mode=mode)
+    box = {"i": 0}
+
+    def step(_i):
+        nonlocal model, state
+        i = box["i"]
+        box["i"] += 1
+        seeds, key = batches.at(i), rng_lib.fold_in(base, i)
+        if driver is None:
+            model, state, _ = eng.step(model, state, data, seeds, key)
+        else:
+            model, state, _ = driver.step(model, state, data, seeds, key)
+
+    for i in range(3):
+        step(i)
+    window = profile_window(step, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(i)
+    torch.cuda.synchronize()
+    window["steps_per_s"] = n / (time.perf_counter() - t0)
+    del window["top"]
+    return window
+
+
+def runtime_step_cost(ds, cfg, guard):
+    """One warm LABOR-0 step through ``TrainEngine.step`` (and, guarded,
+    the rail's record, as the trainer does): the synchronizing calls
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports, each by the
+    innermost lines of the port that made it, and the device operations
+    and busy ms a step over 3 profiled steps."""
+    import traceback
+    import warnings
+
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.data.gnn_loader import SeedBatches
+    from repro_torch.models.gnn import gcn_init
+    from repro_torch.optim import adam
+    from repro_torch.runtime.engine import TrainEngine
+    from repro_torch.runtime.guard import GuardRail
+    from repro_torch.runtime.trainer import build_sampler
+
+    eng = TrainEngine(build_sampler(ds, cfg), adam.AdamConfig(lr=cfg.lr),
+                      device=DEV, guard=guard)
+    rail = GuardRail(guard) if guard is not None else None
+    data = eng.make_data_from_dataset(ds)
+    model = gcn_init(rng_lib.key(cfg.seed), ds.features.shape[1], cfg.hidden,
+                     int(ds.labels.max()) + 1, len(cfg.fanouts), device=DEV)
+    state = eng.init_state(model)
+    batches = SeedBatches(ds.train_idx, cfg.batch_size, seed=cfg.seed,
+                          device=DEV)
+    base = rng_lib.key(cfg.seed + 1)
+    box = {"i": 0}
+
+    def step(_i):
+        nonlocal model, state
+        i = box["i"]
+        box["i"] += 1
+        seeds, key = batches.at(i), rng_lib.fold_in(base, i)
+        model, state, m = eng.step(model, state, data, seeds, key)
+        if rail is not None and rail.record(i, seeds, key,
+                                            m["guard_flags"]) is not None:
+            fail("runtime: a clean guarded step was flagged")
+
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    sites = []
+
+    def seen(message, *_a, **_kw):
+        # the mode warns from inside the synchronizing call: the Python
+        # stack at this point names the line that made it
+        if "called a synchronizing" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "repro_torch" in f.filename]
+            sites.append(" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                    for f in frames[::-1][:3]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    window = profile_window(step, 3)
+    return {"sync_calls_per_step": len(sites), "sync_sites": sites,
+            "device_ops_per_step": window["device_ops_per_call"],
+            "device_busy_ms_per_step": window["device_busy_ms_per_call"]}
+
+
+def phase_runtime(ds, opts):
+    """Phase 4b, the runtime: checkpoints, the guardrail, fault injection
+    and the pipelined driver on LABOR-0 GCN at the widths of phase 4,
+    ``RUNTIME_STEPS`` steps a run through ``train_gnn``. Returns the
+    launch counts of its counted paths (train guarded, train prefetch,
+    train full, serve checkpoint)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.launch import serve, train
+    from repro_torch.runtime import checkpoint as ckpt_lib
+    from repro_torch.runtime import inject as inject_lib
+    from repro_torch.runtime.engine import TrainEngine
+    from repro_torch.runtime.fault_tolerance import (Preemptor,
+                                                     run_with_restarts)
+    from repro_torch.runtime.guard import GuardConfig
+    from repro_torch.runtime.trainer import train_gnn
+    from repro_torch.serving import HiddenCache, ServingDriver, VertexCache
+
+    t_phase = time.perf_counter()
+    steps = max(opts.steps, RUNTIME_STEPS)
+    cfg = train.config(train.parser().parse_args([
+        "--device", DEV, "--dataset", "products", "--scale", str(opts.scale),
+        "--sampler", "labor-0", "--fanouts", "10,10,10", "--batch-size",
+        "1024", "--steps", str(steps), "--seed", str(opts.seed)]))
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+
+    def run(path=None, preemptor=None, **kw):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = train_gnn(ds, dataclasses.replace(cfg, **kw),
+                        preemptor=preemptor)
+        torch.cuda.synchronize()
+        if path is not None:
+            launches = launch_counts()
+            for k in SAMPLING + MODEL_KERNELS["gcn"]:
+                if launches[k] <= 0:
+                    fail(f"kernel {k} was not launched on the {path} path")
+            paths[path] = launches
+        losses = [h["loss"] for h in out["history"]]
+        if not all(map(math.isfinite, losses)):
+            fail(f"runtime {path or kw}: losses {losses}")
+        return out
+
+    def counts(out):
+        return [(h["step"], h["sampled_v"], h["sampled_e"])
+                for h in out["history"]]
+
+    def diff(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(
+            a["params"].parameters(), b["params"].parameters()))
+
+    def held(what, out, ref, tol):
+        if counts(out)[-len(ref["history"]):] != counts(ref)[
+                -len(out["history"]):]:
+            fail(f"runtime {what}: sampled vertices or edges differ from "
+                 "the clean run's")
+        d = diff(out, ref)
+        if d > tol:
+            fail(f"runtime {what}: parameters differ from the clean run's "
+                 f"by {d} (allowed {tol})")
+        return d
+
+    try:
+        # (a) two clean runs, then the guard on a clean run
+        clean = run()
+        again = run()
+        det = held("second clean run", again, clean, float("inf"))
+        guarded = run("train guarded", guard="quarantine")
+        held("guarded clean run", guarded, clean, 0.0)
+        cost = {name: runtime_step_cost(ds, cfg, g) for name, g in (
+            ("unguarded", None), ("guarded", GuardConfig()))}
+        if (cost["guarded"]["sync_calls_per_step"]
+                > cost["unguarded"]["sync_calls_per_step"]):
+            fail(f"runtime: the guard added synchronizing calls: {cost}")
+        emit({"phase": "runtime", "check": "clean", "steps": steps,
+              "determinism_max_abs_diff": det, "bit_exact_runs": det == 0.0,
+              "guarded_bit_exact": True,
+              "guard_stats": dataclasses.asdict(guarded["guard_stats"]),
+              "losses": [h["loss"] for h in clean["history"]],
+              "step_cost": cost})
+        tol = det
+
+        # (b) quarantine
+        q = run(guard="quarantine", guard_warmup=2,
+                inject="nan_grad@3,corrupt_feats@6=1e8")
+        gs = q["guard_stats"]
+        if ([s for s, _ in q["inject_log"]] != ["nan_grad", "corrupt_feats"]
+                or gs.nonfinite_batches < 1 or gs.spike_batches < 1
+                or gs.quarantines < 2 or gs.rollbacks != 0
+                or len(q["history"]) != steps):
+            fail(f"runtime quarantine: {q['inject_log']} {gs}")
+        emit({"phase": "runtime", "check": "quarantine",
+              "inject_log": q["inject_log"],
+              "guard_stats": dataclasses.asdict(gs),
+              "losses": [h["loss"] for h in q["history"]]})
+
+        # (c) rollback past a torn checkpoint
+        ckdir = os.path.join(tmp, "rollback")
+        restored = []
+        orig_restore = ckpt_lib.restore
+
+        def spy(d, step, like):
+            restored.append(step)
+            return orig_restore(d, step, like)
+
+        ckpt_lib.restore = spy
+        try:
+            rb = run(guard="rollback", guard_warmup=2, ckpt_dir=ckdir,
+                     ckpt_every=4, inject="torn_ckpt@1,corrupt_feats@9=1e8")
+        finally:
+            ckpt_lib.restore = orig_restore
+        if (rb["guard_stats"].rollbacks != 1 or restored != [4]
+                or rb["inject_log"] != [("torn_ckpt", 1),
+                                        ("corrupt_feats", 9)]
+                or [h["step"] for h in rb["history"]]
+                != list(range(1, steps + 1))):
+            fail(f"runtime rollback: {rb['guard_stats']}, restored "
+                 f"{restored}, {rb['inject_log']}")
+        d_rb = held("rollback", rb, clean, tol)
+        emit({"phase": "runtime", "check": "rollback",
+              "inject_log": rb["inject_log"], "restored_steps": restored,
+              "guard_stats": dataclasses.asdict(rb["guard_stats"]),
+              "checkpoints": ckpt_lib.latest_steps(ckdir),
+              "params_max_abs_diff_vs_clean": d_rb})
+
+        # (d) preemption
+        pdir = os.path.join(tmp, "preempt")
+        preemptor = Preemptor(fire_step=7)
+        pre = run_with_restarts(lambda: run(ckpt_dir=pdir, ckpt_every=4,
+                                            preemptor=preemptor))
+        if (pre["restarts"] != 1 or [h["step"] for h in pre["history"]]
+                != list(range(5, steps + 1))):
+            fail(f"runtime preemption: restarts {pre['restarts']}, steps "
+                 f"{[h['step'] for h in pre['history']]}")
+        d_pre = held("preemption", pre, clean, tol)
+        emit({"phase": "runtime", "check": "preemption",
+              "restarts": pre["restarts"],
+              "resumed_at_step": pre["history"][0]["step"],
+              "params_max_abs_diff_vs_clean": d_pre})
+
+        # (e) serving the checkpoint of (c), then the serving faults
+        sargs = serve.parser().parse_args(
+            ["--workload", "gnn", "--driver", "async", "--device", DEV,
+             "--dataset", "products", "--scale", str(opts.scale),
+             "--sampler", "labor-0", "--fanouts", "10,10,10", "--hidden",
+             "256", "--batch", "1024", "--seed", str(opts.seed),
+             "--ckpt-dir", ckdir] + ASYNC_TRAFFIC)
+        built = serve.build_gnn_serving(sargs, ds)
+        _, s_engine, s_data, s_model, _ = built
+        for (n, a), (_, b) in zip(s_model.named_parameters(),
+                                  rb["params"].named_parameters()):
+            if not torch.equal(a, b):
+                fail(f"serve checkpoint: restored {n} differs from the "
+                     "trained model's")
+        torch.cuda.synchronize()
+        reset_launches()
+        _, requests, driver, tickets = serve.run_gnn_driver(sargs, built)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        for k in SAMPLING + ("spmm",):
+            if launches[k] <= 0:
+                fail(f"kernel {k} was not launched on the serve checkpoint "
+                     "path")
+        paths["serve checkpoint"] = launches
+        if any(t.status != "ok" for t in tickets):
+            fail("serve checkpoint: a ticket was not served")
+        first = [t for t in tickets if t.rid <= 1024 // 64]
+        seeds = torch.from_numpy(np.concatenate([t.seeds for t in first])
+                                 ).to(DEV)
+        key = rng_lib.fold_in(rng_lib.key(sargs.seed + 1), 1)
+        logits, _ = TrainEngine(s_engine.sampler, device=DEV).infer(
+            rb["params"], s_data, seeds, key)
+        if not np.array_equal(np.concatenate([t.logits for t in first]),
+                              logits.cpu().numpy()):
+            fail("serve checkpoint: dispatch 1's logits differ from the "
+                 "in-memory trained model's")
+        plan = inject_lib.parse(SERVE_FAULTS)
+        fdrv = ServingDriver(
+            s_engine, s_model, s_data, batch_size=1024,
+            feature_cache=VertexCache(262144, "fifo"),
+            hidden_cache=HiddenCache(16384, max_age=0, policy="fifo"),
+            seed=sargs.seed + 1, inject=plan, cache_fault_limit=1,
+            watchdog_interval_s=0.02)
+        ftickets = [fdrv.submit(r) for r in requests]
+        hook = threading.excepthook
+        deaths = []
+        threading.excepthook = lambda a: deaths.append(a.exc_type.__name__)
+        try:
+            fdrv.start()
+            resolved = all(t.wait(300) for t in ftickets)
+            fdrv.stop()
+        finally:
+            threading.excepthook = hook
+        st = fdrv.stats
+        if (not resolved or any(t.status != "ok"
+                                or not np.isfinite(t.logits).all()
+                                for t in ftickets)
+                or not plan.all_fired() or st.nonfinite_batches < 1
+                or st.cache_fallbacks != 1 or st.pump_restarts < 1):
+            fail(f"serve faults: resolved {resolved}, {plan.describe()}, "
+                 f"nonfinite {st.nonfinite_batches}, fallbacks "
+                 f"{st.cache_fallbacks}, restarts {st.pump_restarts}")
+        emit({"phase": "runtime", "check": "serve checkpoint",
+              "checkpoint_step": ckpt_lib.latest_step(ckdir),
+              "dispatch1_bit_exact": True, "tickets": len(tickets),
+              "launches": launches, "faults": plan.describe(),
+              "fault_log": plan.log, "fault_tickets_ok": len(ftickets),
+              "nonfinite_batches": st.nonfinite_batches,
+              "cache_fallbacks": st.cache_fallbacks,
+              "pump_restarts": st.pump_restarts, "thread_deaths": deaths,
+              "batches": st.batches})
+        del built, s_engine, s_data, s_model, driver, fdrv
+
+        # (f) the pipeline modes against the serial run, then windows
+        for mode in ("prefetch", "full"):
+            out = run(f"train {mode}", pipeline=mode)
+            emit({"phase": "runtime", "check": f"pipeline {mode}",
+                  "sampled_bit_exact": True,
+                  "params_max_abs_diff_vs_serial": held(
+                      f"pipeline {mode}", out, clean, tol),
+                  "pipeline_invalidations":
+                      out["stats"].pipeline_invalidations})
+        wcfg = dict(batch_size=cfg.batch_size, fanouts=cfg.fanouts,
+                    lr=cfg.lr, seed=cfg.seed, hidden=cfg.hidden)
+        for mode in ("off", "prefetch", "full"):
+            emit({"phase": "runtime", "window": mode, "steps": 5,
+                  **train_window(ds, wcfg, mode)})
+            torch.cuda.empty_cache()
+        emit({"phase": "runtime", "seconds": time.perf_counter() - t_phase})
+        if opts.parent_src:
+            t0 = time.perf_counter()
+            window = parent_window(opts)
+            emit({"phase": "runtime", "window": "off, parent tree",
+                  "src": opts.parent_src, **window,
+                  "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
+def parent_window(opts):
+    """The serial window of the tree at ``--parent-src`` (its own kernels,
+    built there), in a child process of ``--window-only``."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--window-only",
+           "--src", opts.parent_src, "--scale", str(opts.scale),
+           "--seed", str(opts.seed)]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    if res.returncode != 0 or not lines:
+        fail(f"parent window: exit {res.returncode}: {res.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
 def phase_serve_path(ds, opts, path, sampler, model_name, depth, requests):
     """Phase 3, a further serving path: ``requests`` requests with
     ``sampler`` and ``model_name`` at ``depth`` layers through the
@@ -2203,6 +2623,23 @@ def _to_double(tree):
     return tree.double()
 
 
+def window_only(opts):
+    """``--window-only``: build the kernels of the tree on ``sys.path``,
+    make the dataset and print its serial LABOR-0 window (phase 4b's
+    "off" window) as one JSON line."""
+    from repro_torch.graph import paper_dataset
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    ds = paper_dataset("products", scale=opts.scale, seed=opts.seed)
+    window = train_window(ds, dict(batch_size=1024, fanouts=(10, 10, 10),
+                                   lr=1e-3, seed=opts.seed, hidden=256),
+                          "off")
+    import repro_torch
+    emit({"repro_torch": str(Path(repro_torch.__file__).parent), **window})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=0.25)
@@ -2212,12 +2649,26 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (no kernels or ok line)")
+    ap.add_argument("--parent-src", default=None,
+                    help="the src directory of another tree of the port: "
+                         "phase 4b also prints that tree's serial LABOR-0 "
+                         "window, measured in a child process")
+    ap.add_argument("--window-only", action="store_true",
+                    help="print the serial LABOR-0 window of the port in "
+                         "--src and stop (no kernels or ok line)")
+    ap.add_argument("--src", default=None,
+                    help="the src directory to import repro_torch from "
+                         "(default: this tree's)")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs only "
              "on a CUDA card")
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, opts.src or str(Path(__file__).resolve().parent
+                                       / "src"))
+    if opts.window_only:
+        window_only(opts)
+        return
     from repro_torch.core import rng as rng_lib
     from repro_torch.core.interface import pad_seeds
     from repro_torch.data.gnn_loader import SeedBatches
@@ -2388,6 +2839,9 @@ def main():
     # -- phase 4: train every path through the launcher's path ------------
     paths.update({f"train {k}": v for k, v in phase_train(ds, opts).items()})
     paths[WGRAD_PATH] = wgrad_launches
+
+    # -- phase 4b: checkpoints, the guardrail, faults, the pipeline ---------
+    paths.update(phase_runtime(ds, opts))
 
     # -- phase 5: where the serving time goes -------------------------------
     phase_profile(eng_k, data, model, seeds0, key0)

@@ -1,11 +1,12 @@
 """GNN minibatch feeding (twin of ``repro.data.gnn_loader``): shuffled
-padded seed batches, the eager overflow retry, and the overflow ledger
-of the one-step-late replay protocol. The background prefetch thread
-with its straggler watchdog is not ported (``stragglers_skipped`` stays
-0)."""
+padded seed batches, a background prefetch thread with a straggler
+watchdog, the eager overflow retry, and the overflow ledger of the
+one-step-late replay protocol."""
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from collections import deque
 from typing import Iterator, Optional
 
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.interface import pad_seeds
-from repro_torch.runtime.guard import RetryPolicy
+from repro_torch.runtime.guard import HostFlags, RetryPolicy
 
 
 @dataclasses.dataclass
@@ -22,6 +23,9 @@ class LoaderStats:
     overflow_retries: int = 0
     overflow_replays: int = 0   # batches replayed one step late
     stragglers_skipped: int = 0
+    # pipelined path: in-flight batches re-sampled after a replay grew
+    # the caps (runtime/pipeline.py)
+    pipeline_invalidations: int = 0
 
 
 class SamplingOverflowError(RuntimeError):
@@ -75,6 +79,49 @@ class SeedBatches:
                                 * self.batch_size])
 
 
+class PrefetchIterator:
+    """Runs ``produce`` on a background thread into a queue of ``depth``
+    items. With ``straggler_timeout`` (seconds) a wait that outlasts it
+    is skipped and counted in ``stats.stragglers_skipped`` (a slow
+    producer does not stall the consumer; the item still arrives
+    later)."""
+
+    def __init__(self, produce: Iterator, depth: int = 2,
+                 straggler_timeout: Optional[float] = None,
+                 stats: Optional[LoaderStats] = None):
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.timeout = straggler_timeout
+        self.stats = stats or LoaderStats()
+        self._done = object()
+        self._thread = threading.Thread(target=self._run, args=(produce,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, produce):
+        try:
+            for item in produce:
+                self.q.put(item)
+        finally:
+            self.q.put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        while True:
+            try:
+                item = (self.q.get(timeout=self.timeout) if self.timeout
+                        else self.q.get())
+            except queue.Empty:
+                # the producer missed the deadline: skip this slot
+                self.stats.stragglers_skipped += 1
+                continue
+            if item is self._done:
+                raise StopIteration
+            self.stats.batches += 1
+            return item
+
+
 def sample_with_retry(sampler, graph, seeds, key,
                       stats: Optional[LoaderStats] = None,
                       max_retries: int = 3, *, backend=None):
@@ -104,26 +151,36 @@ def sample_with_retry(sampler, graph, seeds, key,
 class OverflowLedger:
     """The async overflow protocol of the train step: a step gates its
     update on the device's overflow flags (an overflowed batch changes
-    nothing) and records them here; they are read one step late, when
-    reading no longer waits on the batch, and an overflowed batch is
-    handed back for replay with doubled caps. Depth 1 (the serial
-    engine's poll lag)."""
+    nothing) and records them here; a record is read only once ``depth``
+    newer ones sit on top of it, and an overflowed batch is handed back
+    for replay with doubled caps. The serial engine and the pipelined
+    driver (over its compute dispatches) both poll with ``depth`` 1.
 
-    def __init__(self, stats: Optional[LoaderStats] = None):
+    The read is late in fact, not only in name: ``record`` starts the
+    flags' copy to pinned host memory behind a CUDA event
+    (:class:`~repro_torch.runtime.guard.HostFlags`), and the poll waits
+    on that event alone, so the steps queued after the polled one keep
+    the card busy while the host reads."""
+
+    def __init__(self, stats: Optional[LoaderStats] = None, depth: int = 1):
+        if depth < 1:
+            raise ValueError(f"ledger depth must be >= 1, got {depth}")
         self.stats = stats or LoaderStats()
-        self._pending: deque = deque()  # (tag, flags), oldest first
+        self.depth = depth
+        self._pending: deque = deque()  # (tag, HostFlags), oldest first
 
     def record(self, tag, flags):
         """Register batch ``tag`` with its device-side flags; returns the
-        previous batch's tag if it overflowed, else None."""
-        self._pending.append((tag, flags))
-        if len(self._pending) > 1:
+        tag of the batch that fell out of the ``depth``-deep window if it
+        overflowed, else None."""
+        self._pending.append((tag, HostFlags(flags)))
+        if len(self._pending) > self.depth:
             return self._overflowed(self._pending.popleft())
         return None
 
     def flush(self):
-        """After the last step: the pending batch's tag if it
-        overflowed, else None."""
+        """Read every pending batch, oldest first; returns the first
+        overflowed tag (callers re-invoke until None)."""
         while self._pending:
             due = self._overflowed(self._pending.popleft())
             if due is not None:
@@ -132,7 +189,7 @@ class OverflowLedger:
 
     def _overflowed(self, entry):
         tag, flags = entry
-        if bool(flags.any()):
+        if flags.read().any():
             self.stats.overflow_replays += 1
             return tag
         return None

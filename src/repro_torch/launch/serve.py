@@ -25,9 +25,11 @@ default) runs the CUDA kernels and fails if there is no card;
 ``--device cpu`` runs the plain versions on the CPU. ``--model`` takes
 ``gcn`` (the default), ``sage`` or ``gatv2``; its weights come from the
 model's init at ``key(seed)``, the reference's initialisation bit for
-bit, and the sampled sets for a given ``--seed`` are the same. The
-reference's ``--ckpt-dir`` and ``--inject`` wait for the port of its
-checkpoint and fault-injection runtime.
+bit, and the sampled sets for a given ``--seed`` are the same.
+``--ckpt-dir`` serves the trained parameters of the directory's newest
+verified checkpoint instead (one written by either package's trainer),
+and ``--inject`` hands a fault plan (``runtime/inject.py``:
+``stall_stage``, ``cache_corrupt``, ``pump_death``) to the async driver.
 
 LM serving (``--workload lm``, the default workload, as in the
 reference): greedy decode of a batch of random prompts from a model
@@ -47,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -74,6 +77,17 @@ def build_gnn_serving(args, ds=None):
     init = gnn_models.MODELS[args.model][0]
     model = init(rng_lib.key(args.seed), ds.features.shape[1], args.hidden,
                  n_cls, len(fanouts), device=engine.device)
+    if args.ckpt_dir:
+        from repro_torch.runtime import checkpoint as ckpt_lib
+        last = ckpt_lib.latest_step(args.ckpt_dir)
+        if last is not None:
+            like = {"params": ckpt_lib.nest(
+                {k: p.detach() for k, p in model.named_parameters()})}
+            params = ckpt_lib.unnest(ckpt_lib.restore(
+                args.ckpt_dir, last, like)["params"])
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(params[k])
     data = engine.make_data_from_dataset(ds)
     return ds, engine, data, model, np.asarray(ds.labels)
 
@@ -156,6 +170,7 @@ def run_gnn_driver(args, built=None):
     submitted to a :class:`~repro_torch.serving.ServingDriver` (caches
     from the flags, batch keys from ``key(seed + 1)``), then drained.
     Returns (built, requests, driver, tickets)."""
+    from repro_torch.runtime import inject as inject_lib
     from repro_torch.serving import HiddenCache, ServingDriver, VertexCache
 
     built = built or build_gnn_serving(args)
@@ -166,10 +181,14 @@ def run_gnn_driver(args, built=None):
     hc = (HiddenCache(args.hidden_cache, max_age=args.max_age,
                       policy=args.cache_policy)
           if args.hidden_cache else None)
+    # --inject and $REPRO_INJECT are joined, as in the train launcher
+    inject_spec = ",".join(
+        s for s in (os.environ.get(inject_lib.ENV_VAR), args.inject) if s)
     driver = ServingDriver(engine, model, data, batch_size=args.batch,
                            feature_cache=fc, hidden_cache=hc,
                            deadline_ms=args.deadline_ms,
                            max_queue=args.max_queue, seed=args.seed + 1,
+                           inject=inject_lib.parse(inject_spec),
                            cache_fault_limit=args.cache_fault_limit)
     tickets = [driver.submit(r) for r in requests]
     driver.drain()
@@ -315,6 +334,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache-fault-limit", type=int, default=2,
                     help="non-finite-logit faults under an enabled cache "
                          "before the driver turns the caches off")
+    ap.add_argument("--inject", default=None,
+                    help="fault-injection plan for the async driver "
+                         "(runtime/inject.py spec, e.g. "
+                         "'stall_stage@2=0.05,cache_corrupt@3'); joined "
+                         "to $REPRO_INJECT")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the parameters of this directory's newest "
+                         "verified checkpoint")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 

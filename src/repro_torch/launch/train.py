@@ -17,11 +17,25 @@ sampled blocks with Adam, printing the reference launcher's JSON report.
 reference's batches and sampled sets. ``--model`` takes ``gcn`` (the
 default), ``sage`` or ``gatv2`` (8 heads of 32); the hidden width is the
 reference's 256. ``--workload lm`` is not ported yet.
+
+The reference's runtime flags: ``--ckpt-dir`` (resume from the newest
+verified checkpoint, save every 100 steps and at the end; the format is
+the reference's, so either package resumes the other's runs),
+``--guard quarantine|rollback`` with ``--guard-warmup`` and
+``--guard-spike-factor``, ``--inject`` (a fault plan, joined to
+``$REPRO_INJECT``), ``--pipeline off|prefetch|full`` and
+``--no-fused``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --dataset products \
+      --scale 0.25 --fanouts 10,10,10 --batch-size 1024 --steps 12 \
+      --ckpt-dir ck --guard rollback --inject corrupt_feats@9=1e8 \
+      --pipeline prefetch
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import torch
@@ -48,8 +62,31 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--layer-sizes", default=None,
                     help="comma-separated per-layer budgets for (p)ladies")
     ap.add_argument("--batch-size", type=int, default=1000)
+    ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="the engine's gated step (--no-fused: the "
+                         "unfused step after an eager sampling retry)")
+    ap.add_argument("--pipeline", default="off",
+                    choices=["off", "prefetch", "full"],
+                    help="the pipelined driver (runtime/pipeline.py): "
+                         "prefetch samples one batch ahead, full also "
+                         "gathers one ahead")
+    ap.add_argument("--guard", default="off",
+                    choices=["off", "quarantine", "rollback"],
+                    help="the guardrail: detect NaN/Inf and loss spikes "
+                         "on the device (read one step late) and recover "
+                         "by batch quarantine or checkpoint rollback")
+    ap.add_argument("--guard-warmup", type=int, default=5,
+                    help="clean batches before spike detection arms")
+    ap.add_argument("--guard-spike-factor", type=float, default=4.0,
+                    help="loss > factor x EMA flags a spike")
+    ap.add_argument("--inject", default=None,
+                    help="fault-injection plan (runtime/inject.py spec, "
+                         "e.g. 'nan_grad@5,torn_ckpt@1'); joined to "
+                         "$REPRO_INJECT")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -61,14 +98,24 @@ def dataset(args):
 
 def config(args):
     """The ``GNNTrainConfig`` the flags ask for."""
+    from repro_torch.runtime import inject as inject_lib
     from repro_torch.runtime.trainer import GNNTrainConfig
     fanouts = tuple(int(x) for x in args.fanouts.split(","))
     layer_sizes = (tuple(int(x) for x in args.layer_sizes.split(","))
                    if args.layer_sizes else None)
+    # --inject and $REPRO_INJECT are joined: the variable arms a whole
+    # job, the flag one launch
+    inject_spec = ",".join(
+        s for s in (os.environ.get(inject_lib.ENV_VAR), args.inject) if s)
     return GNNTrainConfig(model=args.model, fanouts=fanouts,
                           sampler=args.sampler, layer_sizes=layer_sizes,
                           batch_size=args.batch_size, steps=args.steps,
-                          lr=args.lr, seed=args.seed, device=args.device)
+                          lr=args.lr, seed=args.seed, device=args.device,
+                          ckpt_dir=args.ckpt_dir, fused=args.fused,
+                          pipeline=args.pipeline, guard=args.guard,
+                          guard_warmup=args.guard_warmup,
+                          guard_spike_factor=args.guard_spike_factor,
+                          inject=inject_lib.parse(inject_spec))
 
 
 def train_report(ds, cfg):
@@ -86,6 +133,14 @@ def train_report(ds, cfg):
         "overflow_retries": out["stats"].overflow_retries,
         "overflow_replays": out["stats"].overflow_replays,
     }
+    if "guard_stats" in out:
+        gs = out["guard_stats"]
+        report.update(guard=cfg.guard, guard_quarantines=gs.quarantines,
+                      guard_rollbacks=gs.rollbacks,
+                      guard_nonfinite_batches=gs.nonfinite_batches,
+                      guard_spike_batches=gs.spike_batches)
+    if "inject_log" in out:
+        report["inject_fired"] = [list(x) for x in out["inject_log"]]
     return report, out
 
 

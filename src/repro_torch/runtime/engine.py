@@ -15,8 +15,15 @@ re-runs the same key when a flag is set; :meth:`TrainEngine.
 cached_infer_fn` is the same request with the feature gather routed
 through a device-resident feature cache and, optionally, the deepest
 layer's output through a hidden-state cache (``repro_torch.serving``).
-The guardrail, gradient compression and the multi-device engine are not
-ported: asking for them raises.
+With a :class:`~repro_torch.runtime.guard.GuardConfig` the step also
+computes the guard's ``[nonfinite, spike]`` flags on the device and
+gates the update on them too (``m["guard_flags"]``); with the guard off
+the step is the unguarded one op for op. :meth:`TrainEngine.
+sample_stage`, :meth:`TrainEngine.gather_stage` and the compute are the
+step's stages, which the pipelined driver (``runtime/pipeline.py``)
+runs ahead of each other: the serial step is made of the same pieces in
+the same order. Gradient compression and the multi-device engine are
+not ported: asking for them raises.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ from repro_torch.data.gnn_loader import (LoaderStats, OverflowLedger,
 from repro_torch.graph.csr import Graph
 from repro_torch.ops.backend import resolve_backend
 from repro_torch.optim import adam
-from repro_torch.runtime.guard import RetryPolicy
+from repro_torch.runtime.guard import (GuardConfig, RetryPolicy,
+                                       guard_update, init_guard_state)
 
 
 def take_rows(features: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -80,8 +88,12 @@ class EngineData:
 
 @dataclasses.dataclass(frozen=True)
 class EngineState:
-    """The optimizer state (``adam.init_state``: moments and step)."""
+    """The optimizer state (``adam.init_state``: moments and step) and
+    the guardrail's loss EMA (``guard``: None unless the engine has a
+    :class:`~repro_torch.runtime.guard.GuardConfig`). Both ride in
+    checkpoints."""
     opt: Any
+    guard: Any = None
 
 
 class TrainEngine:
@@ -103,12 +115,14 @@ class TrainEngine:
     def __init__(self, sampler: Sampler, opt_cfg: Optional[adam.AdamConfig]
                  = None, mesh=None, *, device="cuda",
                  backend: Optional[str] = None,
-                 stats: Optional[LoaderStats] = None, guard=None,
-                 grad_compression: str = "none"):
-        if mesh is not None or guard is not None or grad_compression != "none":
+                 stats: Optional[LoaderStats] = None,
+                 guard: Optional[GuardConfig] = None, inject: Any = None,
+                 grad_compression: str = "none",
+                 max_replay_retries: int = 3):
+        if mesh is not None or grad_compression != "none":
             raise NotImplementedError(
-                "the mesh engine, the guardrail and gradient compression "
-                "are not ported to repro_torch yet")
+                "the mesh engine and gradient compression are not ported "
+                "to repro_torch yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for but CUDA is not "
@@ -118,6 +132,16 @@ class TrainEngine:
         self.opt_cfg = opt_cfg or adam.AdamConfig()
         self.backend = resolve_backend(backend, self.device)
         self.stats = stats or LoaderStats()
+        #: the guardrail's configuration (None: off)
+        self.guard = guard
+        #: the fault-injection plan (``runtime/inject.py``); the engine
+        #: owns the ``overflow_storm`` site (:meth:`_read_overflow`)
+        self.inject = inject
+        self.max_replay_retries = max_replay_retries
+        #: dispatched train steps (a clean guarded run dispatches as many
+        #: as an unguarded one)
+        self.dispatches = 0
+        self._ovf_reads = 0
         #: (tag, metrics) of every replay attempt, for step-indexed
         #: histories
         self.replayed: List[Tuple[Any, Dict[str, Any]]] = []
@@ -129,9 +153,12 @@ class TrainEngine:
         self._infer_cached: Dict[Any, Any] = {}
 
     def init_state(self, model) -> EngineState:
-        return EngineState(opt=adam.init_state(
-            {k: p.detach() for k, p in model.named_parameters()},
-            self.opt_cfg))
+        return EngineState(
+            opt=adam.init_state(
+                {k: p.detach() for k, p in model.named_parameters()},
+                self.opt_cfg),
+            guard=(None if self.guard is None
+                   else init_guard_state(self.device)))
 
     def make_data(self, graph: Graph, features, labels) -> EngineData:
         return EngineData(
@@ -154,26 +181,49 @@ class TrainEngine:
     # the train step, in the pieces it runs
     # ------------------------------------------------------------------
 
+    @torch.no_grad()
+    def sample_stage(self, graph: Graph, seeds: torch.Tensor, key):
+        """Sample the blocks at the current caps (no gradient)."""
+        return tuple(self.sampler.sample(graph, seeds,
+                                         self.sampler.spec.salts(key),
+                                         backend=self.backend))
+
+    @torch.no_grad()
+    def gather_stage(self, features, labels_all, blocks):
+        """The deepest layer's features and the seeds' labels:
+        (feats, labels)."""
+        return (gather_feats(features, blocks[-1]),
+                seed_labels(labels_all, blocks[0].seeds))
+
+    @torch.no_grad()
     def sample_batch(self, data: EngineData, seeds: torch.Tensor, key):
         """Sample the blocks and gather the deepest layer's features (no
         gradient): (blocks, feats)."""
-        with torch.no_grad():
-            blocks = self.sampler.sample(data.graph, seeds,
-                                         self.sampler.spec.salts(key),
-                                         backend=self.backend)
-            return blocks, gather_feats(data.features, blocks[-1])
+        blocks = self.sample_stage(data.graph, seeds, key)
+        return blocks, gather_feats(data.features, blocks[-1])
 
     @torch.no_grad()
-    def apply_update(self, model, state: EngineState, grads, blocks):
+    def apply_update(self, model, state: EngineState, grads, blocks,
+                     loss: Optional[torch.Tensor] = None):
         """Clip + Adam, written into ``model`` and the new state unless
-        the batch overflowed (gated on the device). Returns (state,
+        the batch overflowed or, with the guard on, was flagged (gated on
+        the device; ``loss`` feeds the guard). Returns (state,
         metrics)."""
         params = dict(model.named_parameters())
+        grads = dict(zip(params, grads))
         new_p, new_opt, m = adam.apply_updates(
-            {k: p.detach() for k, p in params.items()},
-            dict(zip(params, grads)), state.opt, self.opt_cfg)
+            {k: p.detach() for k, p in params.items()}, grads, state.opt,
+            self.opt_cfg)
         ovf = overflow_flags(blocks)
         bad = ovf.any()
+        gstate = state.guard
+        if self.guard is not None:
+            # the twin of the reference's _guard_gate: the EMA never
+            # absorbs a flagged or overflowed batch
+            gflags, gstate = guard_update(self.guard, loss, grads,
+                                          state.guard, bad)
+            bad = bad | gflags.any()
+            m["guard_flags"] = gflags
         for k, p in params.items():
             p.copy_(torch.where(bad, p, new_p[k]))
 
@@ -183,17 +233,42 @@ class TrainEngine:
             return torch.where(bad, old, new)
 
         m.update(overflow=ovf, **sampled_counts(blocks))
-        return EngineState(opt=gate(new_opt, state.opt)), m
+        return EngineState(opt=gate(new_opt, state.opt), guard=gstate), m
+
+    def _compute(self, model, state: EngineState, blocks, feats, labels):
+        """Forward, loss, backward and the gated update of one sampled
+        batch."""
+        loss, acc = gnn_loss_fn(model, blocks, feats, labels, self.backend)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        loss = loss.detach()
+        state, m = self.apply_update(model, state, grads, blocks, loss)
+        m.update(loss=loss, acc=acc)
+        return model, state, m
 
     def _dispatch(self, model, state: EngineState, data: EngineData, seeds,
                   key):
+        self.dispatches += 1
         blocks, feats = self.sample_batch(data, seeds, key)
-        loss, acc = gnn_loss_fn(model, blocks, feats,
-                                seed_labels(data.labels, seeds), self.backend)
-        grads = torch.autograd.grad(loss, list(model.parameters()))
-        state, m = self.apply_update(model, state, grads, blocks)
-        m.update(loss=loss.detach(), acc=acc)
-        return model, state, m
+        return self._compute(model, state, blocks, feats,
+                             seed_labels(data.labels, seeds))
+
+    def _read_overflow(self, m) -> torch.Tensor:
+        """The one place a step's overflow flags are taken for the
+        ledger and the replay, and so the ``overflow_storm`` site: a
+        firing storm replaces the flags with all-true, which drives the
+        grow-and-replay path as a real persistent overflow would."""
+        flags = m["overflow"]
+        if self.inject is not None and self.inject.armed("overflow_storm"):
+            if self.inject.fires("overflow_storm",
+                                 self._ovf_reads) is not None:
+                flags = torch.ones_like(flags)
+        self._ovf_reads += 1
+        return flags
+
+    def reset_protocol(self):
+        """Drop the overflow window unread (the guardrail's rollback: its
+        entries belong to a discarded trajectory)."""
+        self._ledger = OverflowLedger(self.stats, depth=self._ledger.depth)
 
     def step(self, model, state: EngineState, data: EngineData, seeds, key,
              tag: Any = None):
@@ -204,14 +279,15 @@ class TrainEngine:
         metrics land in :attr:`replayed`."""
         model, state, m = self._dispatch(model, state, data, seeds, key)
         due = self._ledger.record((seeds, key, tag, self.sampler),
-                                  m["overflow"])
+                                  self._read_overflow(m))
         if due is not None:
             model, state, _ = self._replay(model, state, data, *due)
         return model, state, m
 
     def flush(self, model, state: EngineState, data: EngineData):
-        """Resolve the last batch (end of training). Returns (model,
-        state, metrics of the replayed batch or None)."""
+        """Resolve the last batch (end of training, or before a
+        checkpoint is saved). Returns (model, state, metrics of the
+        replayed batch or None)."""
         due = self._ledger.flush()
         if due is None:
             return model, state, None
@@ -227,12 +303,12 @@ class TrainEngine:
             _, s, m = self._dispatch(model, box["state"], data, seeds, key)
             box["state"] = s
             self.replayed.append((tag, m))
-            if bool(m["overflow"].any()):
+            if bool(self._read_overflow(m).any()):
                 box["then"] = self.sampler
                 return None
             return model, s, m
 
-        return RetryPolicy().run(
+        return RetryPolicy(self.max_replay_retries).run(
             attempt, error=SamplingOverflowError,
             describe="sampling overflow persisted after cap doubling")
 

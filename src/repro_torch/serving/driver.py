@@ -38,13 +38,16 @@ same salts per batch.
 
 Use it inline (``pump`` until drained: deterministic, what the tests and
 ``launch/serve.py`` do) or on a background thread (``start``/``stop``,
-with a watchdog that restarts a dead pump). The fault-injection plan
-of the reference (``inject``: ``cache_corrupt``, ``pump_death``,
-``stall_stage``) belongs to ``runtime/inject.py``, which is not ported
-yet; passing one raises.
+with a watchdog that restarts a dead pump). ``inject`` (a
+``runtime/inject.py`` plan) arms the serving sites: ``stall_stage``
+sleeps in the dispatch, ``cache_corrupt`` NaN-poisons the cache tables
+before the firing batch (the cache-fault path must recover), both
+indexed by the batch ordinal, and ``pump_death`` kills the background
+pump (the watchdog must restart it), indexed by the pump's iteration.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from collections import deque
@@ -57,6 +60,7 @@ from repro_torch.core import rng as rng_lib
 from repro_torch.data.gnn_loader import SamplingOverflowError
 from repro_torch.runtime.engine import EngineData, TrainEngine
 from repro_torch.runtime.guard import RetryPolicy
+from repro_torch.runtime.inject import InjectedThreadDeath
 from repro_torch.serving.batcher import (AdmissionError, Ticket, coalesce,
                                          scatter_back)
 from repro_torch.serving.cache import HiddenCache, VertexCache
@@ -82,6 +86,7 @@ class ServingDriver:
       max_grows: cap doublings per dispatch before
         ``SamplingOverflowError`` reaches every ticket of the batch.
       seed: base of the per-batch key schedule.
+      inject: a fault-injection plan (``runtime.inject.FaultPlan``).
       cache_fault_limit: non-finite-logit faults under an enabled cache
         before the driver turns the caches off for good.
       watchdog_interval_s: how often the watchdog checks that the
@@ -96,10 +101,6 @@ class ServingDriver:
                  max_queue: int = 1024, max_grows: int = 4, seed: int = 0,
                  inject=None, cache_fault_limit: int = 2,
                  watchdog_interval_s: float = 0.05):
-        if inject is not None:
-            raise NotImplementedError(
-                "fault injection (runtime/inject.py) is not ported to "
-                "repro_torch yet")
         self.engine = engine
         self.params = params
         self.data = data
@@ -111,9 +112,11 @@ class ServingDriver:
         self.max_grows = int(max_grows)
         self.cache_fault_limit = int(cache_fault_limit)
         self.watchdog_interval_s = float(watchdog_interval_s)
+        self.inject = inject
         self.stats = ServingStats()
         self._key = rng_lib.key(seed)
         self._batch_index = 0
+        self._pump_iter = 0
         self._pending: deque = deque()
         self._lock = threading.Lock()
         self._rid = 0
@@ -220,6 +223,32 @@ class ServingDriver:
     def _batch_key(self):
         return rng_lib.fold_in(self._key, self._batch_index)
 
+    def _apply_injectors(self):
+        """The serving sites of the fault plan: ``stall_stage`` sleeps in
+        the dispatch, ``cache_corrupt`` multiplies every float table of
+        the cache states by NaN (the non-finite-logit fallback must
+        recover)."""
+        inj = self.inject
+        if inj is None:
+            return
+        if inj.armed("stall_stage"):
+            spec = inj.fires("stall_stage", self._batch_index)
+            if spec is not None:
+                time.sleep(spec.effect)
+        if inj.armed("cache_corrupt") and (self._fc_state is not None
+                                           or self._hc_state is not None):
+            spec = inj.fires("cache_corrupt", self._batch_index)
+            if spec is not None:
+                def nan_poison(state):
+                    return dataclasses.replace(state, **{
+                        f.name: getattr(state, f.name) * float("nan")
+                        for f in dataclasses.fields(state)
+                        if getattr(state, f.name).is_floating_point()})
+                if self._fc_state is not None:
+                    self._fc_state = nan_poison(self._fc_state)
+                if self._hc_state is not None:
+                    self._hc_state = nan_poison(self._hc_state)
+
     def _infer_batch(self, seeds_np: np.ndarray):
         """One dispatch of the (cache-aware) infer request under the
         grow-and-retry overflow protocol (:class:`RetryPolicy`). Returns
@@ -228,6 +257,7 @@ class ServingDriver:
         seeds = torch.as_tensor(seeds_np, device=eng.device)
         self._batch_index += 1
         key = self._batch_key()
+        self._apply_injectors()
 
         def attempt(_i):
             if eng.generation != self._cache_gen:
@@ -340,13 +370,20 @@ class ServingDriver:
     def start(self) -> None:
         """Run the serving loop on a background thread until
         :meth:`stop`. A watchdog thread restarts the pump if its thread
-        dies."""
+        dies, also of a death the loop's own handler cannot catch (the
+        ``pump_death`` injector raises a ``BaseException``)."""
         if self._thread is not None:
             raise RuntimeError("driver already started")
         self._stop.clear()
 
         def loop():
             while not self._stop.is_set():
+                inj = self.inject
+                if inj is not None and inj.armed("pump_death"):
+                    if inj.fires("pump_death", self._pump_iter) is not None:
+                        raise InjectedThreadDeath(
+                            f"pump killed at iteration {self._pump_iter}")
+                self._pump_iter += 1
                 try:
                     served = self.pump()
                 except SamplingOverflowError:

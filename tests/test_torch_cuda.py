@@ -1788,3 +1788,133 @@ def test_segment_select_is_two_device_operations(cuda_device):
     assert sum(c for _, c in ops) == 10, ops
     assert all("select_warp" in k or "select_block" in k
                for k, _ in ops), ops
+
+
+# ----------------------------------------------------------------------
+# the runtime: the event-based poll, the guard, async checkpoints
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_event_poll_reads_each_steps_flags(cuda_device):
+    """The ledger's and the guard rail's poll over 50 steps in a row,
+    with the flags set on chosen steps behind queued work: each poll
+    reads its own step's flags."""
+    from repro_torch.data.gnn_loader import LoaderStats, OverflowLedger
+    from repro_torch.runtime.guard import GuardConfig, GuardRail
+
+    chosen = [3, 4, 17, 31, 49]
+    led, rail = OverflowLedger(LoaderStats()), GuardRail(GuardConfig())
+    x = torch.randn(2048, 2048, device=cuda_device)
+    replays, flagged = [], []
+    for i in range(50):
+        y = x @ x                          # work queued ahead of the flags
+        bad = (y[0, 0] * 0 + float(i in chosen)) > 0.5
+        due = led.record(i, torch.stack([torch.zeros_like(bad), bad]))
+        if due is not None:
+            replays.append(due)
+        w = rail.record(i, None, None, torch.stack([bad, bad & False]))
+        if w is not None:
+            flagged.append(w.step)
+    while (due := led.flush()) is not None:
+        replays.append(due)
+    while (w := rail.flush()) is not None:
+        flagged.append(w.step)
+    assert replays == chosen and flagged == chosen
+    assert led.stats.overflow_replays == rail.stats.nonfinite_batches == 5
+
+
+@pytest.mark.cuda
+def test_event_poll_does_not_wait_on_the_stream(cuda_device):
+    """Reading an older step's flags returns while work queued after it
+    is still running on the stream."""
+    from repro_torch.data.gnn_loader import LoaderStats, OverflowLedger
+
+    led = OverflowLedger(LoaderStats())
+    x = torch.randn(8192, 8192, device=cuda_device)
+    torch.cuda.synchronize()
+    led.record("a", torch.ones(2, dtype=torch.bool, device=cuda_device))
+    for _ in range(8):                     # ~0.2 s of fp32 products
+        x = x @ x * 1e-4
+    assert led.record("b", torch.zeros(2, dtype=torch.bool,
+                                       device=cuda_device)) == "a"
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_clean_guarded_step_adds_no_synchronizing_call(cuda_device):
+    """One warm LABOR-0 step under ``set_sync_debug_mode("warn")``, with
+    and without the guard: the same synchronizing calls (the polls wait
+    on events, which the mode does not count), the same parameters."""
+    import warnings
+
+    from repro_torch.runtime.guard import GuardConfig, GuardRail
+
+    ds = paper_dataset("products", 0.004, seed=2)
+    smp = TS.from_dataset("labor-0", ds, batch_size=64, fanouts=(5, 5, 5))
+    syncs, params = {}, {}
+    for guard in (None, GuardConfig()):
+        eng = TrainEngine(smp, adam.AdamConfig(), device="cuda", guard=guard)
+        rail = GuardRail(guard) if guard is not None else None
+        data = eng.make_data_from_dataset(ds)
+        model = gcn_init(TR.key(0), 100, 32, 47, 3, device="cuda")
+        state = eng.init_state(model)
+
+        def step(i):
+            nonlocal model, state
+            seeds = pad_seeds(ds.train_idx[64 * i:64 * (i + 1)], 64,
+                              device="cuda")
+            model, state, m = eng.step(model, state, data, seeds,
+                                       TR.key(i))
+            if rail is not None:
+                assert rail.record(i, seeds, None, m["guard_flags"]) is None
+
+        for i in range(3):
+            step(i)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(3)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs[guard is not None] = sorted(
+            str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message))
+        params[guard is not None] = [p.detach().clone()
+                                     for p in model.parameters()]
+    assert syncs[True] == syncs[False]
+    for a, b in zip(params[True], params[False]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_async_saver_snapshot_of_card_tensors(cuda_device, tmp_path):
+    """A save of the card's parameters and moments holds the values of
+    the moment it was asked for, whatever the steps after it write in
+    place."""
+    from repro_torch.runtime import checkpoint as ck
+
+    ds = paper_dataset("products", 0.004, seed=2)
+    smp = TS.from_dataset("labor-0", ds, batch_size=64, fanouts=(5, 5, 5))
+    eng = TrainEngine(smp, adam.AdamConfig(lr=1e-2), device="cuda")
+    data = eng.make_data_from_dataset(ds)
+    model = gcn_init(TR.key(0), 100, 32, 47, 3, device="cuda")
+    state = eng.init_state(model)
+    seeds = pad_seeds(ds.train_idx[:64], 64, device="cuda")
+    model, state, _ = eng.step(model, state, data, seeds, TR.key(1))
+    want = {k: v.clone() for k, v in ck.unnest(
+        ck.state_tree(model, state)).items()}
+    saver = ck.AsyncSaver(str(tmp_path))
+    saver.save(1, ck.state_tree(model, state))
+    for i in range(3):
+        model, state, _ = eng.step(model, state, data, seeds, TR.key(2 + i))
+    saver.wait()
+    got = ck.unnest(ck.restore(str(tmp_path), 1,
+                               ck.state_tree(model, state)))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].device.type == "cuda" and torch.equal(got[k], v), k
+    assert not torch.equal(got["params.layers.0.w"],
+                           dict(model.named_parameters())["layers.0.w"])

@@ -49,6 +49,7 @@ from repro_torch.data.gnn_loader import SamplingOverflowError  # noqa: E402
 from repro_torch.graph.generators import DatasetSpec as TSpec  # noqa: E402
 from repro_torch.graph.generators import generate as tgen  # noqa: E402
 from repro_torch.models import gnn as tgnn  # noqa: E402
+from repro_torch.runtime import inject as TI  # noqa: E402
 from repro_torch.runtime.engine import TrainEngine as TEngine  # noqa: E402
 
 B, FANOUTS, HIDDEN, N_CLS = 64, (4, 3), 16, 5
@@ -344,8 +345,8 @@ def test_admission_backpressure_and_timeouts(dsets, params):
     with pytest.raises(TV.AdmissionError, match="load shed"):
         drv.submit([8], deadline_ms=60.0)
     assert drv.stats.shed == 1
-    with pytest.raises(NotImplementedError, match="inject"):
-        _port_driver(dsets, model, inject="cache_corrupt@1")
+    with pytest.raises(ValueError, match="malformed injector spec"):
+        _port_driver(dsets, model, inject=TI.parse("cache_corrupt@one"))
 
 
 def test_overflow_grows_then_raises(dsets, params):

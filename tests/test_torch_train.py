@@ -240,10 +240,13 @@ def test_cuda_is_the_default_and_unported_options_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tlaunch.main(SURFACE)
-    for kw in (dict(guard="rollback"), dict(pipeline="full"),
-               dict(mesh_devices=4), dict(ckpt_dir="ck")):
-        with pytest.raises(NotImplementedError):
-            ttrain.GNNTrainConfig(**kw)
+    with pytest.raises(NotImplementedError, match="mesh_devices"):
+        ttrain.GNNTrainConfig(mesh_devices=4)
+    cfg = ttrain.GNNTrainConfig(guard="rollback", pipeline="full",
+                                ckpt_dir="ck", fused=False,
+                                inject="nan_grad@3")
+    assert (cfg.guard, cfg.pipeline, cfg.ckpt_dir, cfg.fused,
+            cfg.inject) == ("rollback", "full", "ck", False, "nan_grad@3")
     with pytest.raises(ValueError, match="unknown model"):
         ttrain.GNNTrainConfig(model="gin")
     with pytest.raises(SystemExit, match="not ported"):
@@ -260,6 +263,10 @@ def test_port_modules_load_neither_jax_nor_repro():
         "import repro_torch.core.samplers, repro_torch.core.cs_solve\n"
         "import repro_torch.kernels.edge_softmax.ops, repro_torch.models.gnn\n"
         "import repro_torch.serving, repro_torch.serving.driver\n"
+        "import repro_torch.runtime.checkpoint, repro_torch.runtime.inject\n"
+        "import repro_torch.runtime.guard, repro_torch.runtime.pipeline\n"
+        "import repro_torch.runtime.fault_tolerance\n"
+        "import repro_torch.data.gnn_loader, repro_torch.runtime.engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
