@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
   python3 chip_smoke.py [--scale 0.25] [--requests 8] [--steps 8] [--reps 20]
-                        [--kernels-only] [--parent-src DIR/src]
+                        [--kernels-only | --lm-only] [--parent-src DIR/src]
   python3 chip_smoke.py --window-only [--src DIR/src]
 
 Phases, each printing JSON lines; any mismatch, build failure or launch
@@ -143,7 +143,8 @@ error exits non-zero:
      and 1000, window 1 and window >= S, GQA ratios 1-8, every head
      dimension, bf16, a custom scale, non-causal with a ragged Sk,
      queries that see no key, strided and misaligned q; fp32 within 2e-5
-     x max(1, max|v|), bf16 within 3e-2); then each path of ``LM_PATHS``
+     x max(1, max|v|), bf16 within 3e-2; MHA of 32 heads of 80 and
+     GQA 64/4 at hd 128 among them); then each path of ``LM_PATHS``
      through ``repro_torch.launch.serve``'s ``serve_lm`` at full width with
      random weights (gemma2-2b: batch 1, a 32,768-token prompt, 32
      tokens; stablelm-1.6b: batch 4, 4,096, 16), counts zeroed before
@@ -158,15 +159,41 @@ error exits non-zero:
      from both caches with the served tokens, both fp32 paths within
      1e-4 of an fp64 recompute at a 2,048-token prompt, 3 decode steps
      and one prefill under the profiler (B9's share of the device time,
-     idle shares).
+     idle shares);
+  7. LM training through ``repro_torch.launch.train``'s ``--workload lm``
+     path (``train_lm``) at full width and depth, remat on, Adam lr 1e-3
+     on the reference's bigram stream: gemma2-2b (phase 6's weights,
+     batch 1 x 2,048 tokens, 4 steps) and mamba2-370m (4 x 2,048, 4
+     steps). Step 0 recomputed on the kernel and the plain path from the
+     same weights (losses within 1e-5 relative; every gradient and every
+     parameter after the step's update within 1e-3 relative L2 per
+     tensor) and against fp64 at ``TRAIN_FP64_SEQ`` tokens with remat
+     off (both fp32 paths' loss within 1e-5, gradients within 1e-3: the
+     checkpointed gradients against plain autograd); for mamba2-370m 2
+     microbatches against 1 on the same batch (loss within 1e-5,
+     gradients within 1e-4). Counts zeroed before the run, read after:
+     B9 launches twice per attention layer a step (the forward and the
+     remat recompute: 26 x 2 for gemma2-2b, none for mamba2-370m); the
+     losses finite, the last below the first; one more step and one
+     no-gradient forward under the profiler (busy ms, operations, idle
+     share, B9's share);
+  8. LM serving of the other blocks, as phase 6: mamba2-370m (batch 4, a
+     4,096-token prompt, 16 tokens; the conv and SSM states in the cache
+     checks, as the prefill left them), zamba2-2.7b (1, 8,192, 16; its
+     shared attention is 9 B9 launches, MHA of 32 heads of 80) and
+     qwen3-moe-235b-a22b at full width cut to one of its 94 layers
+     (listed in its line as ``reduced``; 1, 4,096, 16; GQA 64/4 at hd
+     128). ``--lm-only`` runs phase 1 and then phases 6-8 alone (no
+     ``kernels`` or ``ok`` line).
 
 The line before the last is the ``kernels`` JSON object: per kernel,
 ``launches_by_path`` holds its count on each counted path (serve, serve
 full, serve gatv2, weighted <sampler> for each weighted sampler, serve
 async, train <sampler> for each sampler, train sage, train gatv2, the
 weight-gradient path, train guarded, train prefetch, train full, serve
-checkpoint, serve lm gemma2-2b, serve lm stablelm-1.6b) and
-``launches`` their sum.
+checkpoint, serve lm gemma2-2b, serve lm stablelm-1.6b, train lm
+gemma2-2b, train lm mamba2-370m, serve lm mamba2-370m, serve lm
+zamba2-2.7b, serve lm qwen3-moe-235b-a22b) and ``launches`` their sum.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits 1 and prints no result.
 """
@@ -2333,15 +2360,33 @@ def profile_window(run, n, share_of=None):
 
 
 #: the LM serving paths: name -> (arch, decode batch, prompt, generated
-#: tokens). gemma2-2b at the repo's prefill_32k prompt (its batch of 32
-#: cut to 1 for one card) exercises every branch of B9: GQA 8/4, hd 256,
-#: the 4096 window and the softcap; stablelm-1.6b covers MHA at hd 64, no
-#: window, no softcap, and is the one where a PyTorch call
+#: tokens, depth or None for the arch's own). Phase 6, the dense archs:
+#: gemma2-2b at the repo's prefill_32k prompt (its batch of 32 cut to 1
+#: for one card) exercises every branch of B9: GQA 8/4, hd 256, the 4096
+#: window and the softcap; stablelm-1.6b covers MHA at hd 64, no window,
+#: no softcap, and is the one where a PyTorch call
 #: (scaled_dot_product_attention) computes the kernel's function
-LM_PATHS = {"serve lm gemma2-2b": ("gemma2-2b", 1, 32768, 32),
-            "serve lm stablelm-1.6b": ("stablelm-1.6b", 4, 4096, 16)}
+LM_PATHS = {"serve lm gemma2-2b": ("gemma2-2b", 1, 32768, 32, None),
+            "serve lm stablelm-1.6b": ("stablelm-1.6b", 4, 4096, 16, None)}
+#: phase 8, the other blocks: Mamba2 alone (its conv and SSM states, no
+#: attention), zamba2's Mamba2 backbone with one shared attention + MLP
+#: used 9 times (B9 as MHA of 32 heads of 80, an 8,192-token prompt),
+#: and qwen3-moe's MoE (128 experts of 1,536, top-8) behind GQA 64/4 at
+#: hd 128 (a ratio of 16), at its full width and one of its 94 layers
+LM_BLOCK_PATHS = {
+    "serve lm mamba2-370m": ("mamba2-370m", 4, 4096, 16, None),
+    "serve lm zamba2-2.7b": ("zamba2-2.7b", 1, 8192, 16, None),
+    "serve lm qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", 1, 4096, 16, 1)}
+#: phase 7, LM training: name -> (arch, batch, sequence, Adam steps), at
+#: full width and depth, remat on (each attention layer's B9 runs in the
+#: forward and again in the recompute)
+LM_TRAIN_PATHS = {"train lm gemma2-2b": ("gemma2-2b", 1, 2048, 4),
+                  "train lm mamba2-370m": ("mamba2-370m", 4, 2048, 4)}
 #: the prompt of the fp64 yardstick (fp64 at 32k would run minutes)
 FP64_PROMPT = 2048
+#: the tokens of a training step's fp64 yardstick (batch 1): gemma2-2b's
+#: fp64 parameters and gradients take 42 GB of the card
+TRAIN_FP64_SEQ = 256
 #: timed launches of B9 at the real inputs (a gemma2 global layer's
 #: plain version takes ~0.3 s)
 LM_REPS = 3
@@ -2413,10 +2458,10 @@ def flash_check(name, q, k, v, kw, record=None, library=None):
 
 def adversarial_flash():
     """B9's edge cases against its plain version: Sq 1, 130 and 1000,
-    window 1 and window >= S, no softcap, GQA ratios 1, 2 and 8, every
-    head dimension, bf16, a custom scale, non-causal with a ragged Sk,
-    queries that see no key, q read through its strides, q misaligned
-    (staged element by element)."""
+    window 1 and window >= S, no softcap, GQA ratios 1, 2, 8 and 16 (at
+    hd 128), MHA of 32 heads of 80, every head dimension, bf16, a custom
+    scale, non-causal with a ragged Sk, queries that see no key, q read
+    through its strides, q misaligned (staged element by element)."""
     g = torch.Generator(device=DEV).manual_seed(7)
     # (B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap, scale, dtype)
     cases = [
@@ -2431,6 +2476,10 @@ def adversarial_flash():
         (1, 130, 333, 4, 4, 64, False, None, None, None, torch.float32),
         (1, 1, 1000, 2, 1, 64, True, None, None, None, torch.float32),
         (2, 200, 50, 2, 1, 64, False, 20, None, None, torch.float32),
+        # zamba2's shared attention: MHA, 32 heads of 80
+        (1, 1000, 1000, 32, 32, 80, True, None, None, None, torch.float32),
+        # qwen3-moe: GQA 64/4, a ratio of 16, at hd 128
+        (1, 1000, 1000, 64, 4, 128, True, None, None, None, torch.float32),
     ]
     worst = 0.0
     for n, (B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap, scale,
@@ -2463,108 +2512,136 @@ def rel_l2_or_fail(what, got, want, tol=LM_TOL):
     return e
 
 
+def n_attention(cfg):
+    """The attention layers of a config (zamba2's shared block once per
+    use): B9's launches in one forward on the ``cuda`` backend."""
+    return sum(k != "mamba" for k in cfg.layer_pattern) * cfg.repeats
+
+
 def phase_lm(path, opts, records):
     """A further path: LM serving through ``repro_torch.launch.serve``'s
     ``serve_lm`` at full width (random weights from ``--seed``): counts
-    zeroed before, read after (one B9 launch per layer); B9 held against
-    its plain version on the real q, k and v of the first layers; the
-    prefill recomputed on the plain path on the card (last logits and
-    every layer's K/V), the decode teacher-forced from both caches with
-    the kernel path's tokens; both fp32 paths against fp64 at a
-    ``FP64_PROMPT`` prompt; one prefill under the profiler."""
+    zeroed before, read after (one B9 launch per attention layer); B9
+    held against its plain version on the real q, k and v of the first
+    attention layers; the prefill recomputed on the plain path on the
+    card (last logits and every cache tensor: K/V, and Mamba2's conv and
+    SSM states as the prefill left them), the decode teacher-forced from
+    both caches with the kernel path's tokens; both fp32 paths against
+    fp64 at a ``FP64_PROMPT`` prompt; 3 decode steps and one prefill
+    under the profiler. Returns the counts and (config, parameters)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve
     from repro_torch.models.transformer import stack
 
-    arch, batch, prompt, gen = LM_PATHS[path]
+    t_path = time.perf_counter()
+    arch, batch, prompt, gen, depth = {**LM_PATHS, **LM_BLOCK_PATHS}[path]
     args = serve.parser().parse_args([
         "--workload", "lm", "--device", DEV, "--arch", arch, "--batch",
         str(batch), "--prompt-len", str(prompt), "--gen", str(gen),
         "--seed", str(opts.seed)])
     t0 = time.perf_counter()
-    cfg, params, prompts = built = serve.build_lm(args)
+    cfg, params, prompts = built = serve.build_lm(args, num_layers=depth)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _tensors(params))
+    n_attn = n_attention(cfg)
     # warm-up outside the counts: cuBLAS's shapes, the allocator's pools
     stack.prefill(params, prompts[:, :256], cfg)
     torch.cuda.synchronize()
 
-    # the main path, counted; the first local and global layers' q, k, v
-    # kept for the kernel check
-    captured = []
-    orig = fa.flash_attention
+    # the main path, counted; the first attention layers' q, k, v kept
+    # for the kernel check, and the Mamba2 states as the prefill left
+    # them (the decode advances them in place)
+    captured, states = [], []
+    orig, orig_widen = fa.flash_attention, stack.widen_cache
+    n_check = sum(k != "mamba" for k in cfg.layer_pattern)
 
     def spy(q, k, v, *a):
-        if len(captured) < len(cfg.layer_pattern):
+        if len(captured) < n_check:
             captured.append((q, k, v, a))
         return orig(q, k, v, *a)
+
+    def widen_spy(cache, extra):
+        states.extend({n: t.clone() for n, t in c.items()
+                       if n not in ("k", "v")} for c in cache)
+        return orig_widen(cache, extra)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    fa.flash_attention = spy
+    fa.flash_attention, stack.widen_cache = spy, widen_spy
     try:
         res = serve.serve_lm(args, built)
     finally:
-        fa.flash_attention = orig
+        fa.flash_attention, stack.widen_cache = orig, orig_widen
     torch.cuda.synchronize()
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if launches["flash_attention"] != cfg.num_layers:
+    if launches["flash_attention"] != n_attn:
         fail(f"{path}: B9 launched {launches['flash_attention']} times for "
-             f"{cfg.num_layers} layers")
+             f"{n_attn} attention layers")
     toks = res["tokens"]
     if (toks.shape != (batch, gen) or not bool(torch.isfinite(
             res["last_logits"]).all())
             or not bool(((toks >= 0) & (toks < cfg.vocab)).all())):
         fail(f"{path}: tokens {tuple(toks.shape)} or non-finite logits")
-    emit({"phase": path, "arch": arch, "params": n_params,
-          "init_seconds": init_s, "batch": batch, "prompt": prompt,
-          "gen": gen, "prefill_ms": res["prefill_s"] * 1e3,
-          "decode_ms_per_token": res["decode_s"] * 1e3 / max(gen - 1, 1),
-          "decode_tokens_per_s": batch * (gen - 1) / res["decode_s"],
-          "prefill_tokens_per_s": batch * prompt / res["prefill_s"],
-          "launches": launches, "peak_memory_gib": peak,
-          "sample": toks[0, :12].tolist()})
+    line = {"phase": path, "arch": arch, "params": n_params,
+            "init_seconds": init_s, "batch": batch, "prompt": prompt,
+            "gen": gen, "prefill_ms": res["prefill_s"] * 1e3,
+            "decode_ms_per_token": res["decode_s"] * 1e3 / max(gen - 1, 1),
+            "decode_tokens_per_s": batch * (gen - 1) / res["decode_s"],
+            "prefill_tokens_per_s": batch * prompt / res["prefill_s"],
+            "launches": launches, "peak_memory_gib": peak,
+            "sample": toks[0, :12].tolist()}
+    if depth is not None:
+        from repro_torch import configs as cfgreg
+        line["reduced"] = [f"num_layers {cfgreg.get_config(arch).num_layers}"
+                           f" -> {depth}"]
+    emit(line)
 
-    # B9 on the real inputs of the first layers (and SDPA where it
-    # computes the same function: no window, no softcap, MHA)
+    # B9 on the real inputs of the first attention layers (and SDPA where
+    # it computes the same function: no window, no softcap; GQA through
+    # its enable_gqa)
     for i, (q, k, v, (causal, window, softcap, scale)) in enumerate(
             captured):
         kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
         library = None
-        if window is None and softcap is None and q.shape[2] == k.shape[2]:
-            def library(q=q, k=k, v=v, scale=scale):
+        if window is None and softcap is None and \
+                q.shape[2] % k.shape[2] == 0:
+            def library(q=q, k=k, v=v, scale=scale, causal=causal):
                 return torch.nn.functional.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, scale=scale).transpose(1, 2)
-        flash_check(f"{arch} layer {i} ({cfg.layer_pattern[i]})", q, k, v,
-                    kw, records["flash_attention"], library)
-    del captured, q, k, v
+                    is_causal=causal, scale=scale,
+                    enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+        flash_check(f"{arch} attention {i}", q, k, v, kw,
+                    records["flash_attention"], library)
+    del captured
     torch.cuda.empty_cache()
 
-    # the prefill on the plain path from the same weights
+    # the prefill on the plain path from the same weights; the kernel
+    # path's cache with its states as the prefill left them
     plain_logits, plain_cache = stack.prefill(params, prompts, cfg,
                                               backend="eager")
     torch.cuda.synchronize()
+    cache = [{**c, **st} for c, st in zip(res["cache"], states)]
     checks = {"last_logits_rel_l2": rel_l2_or_fail(
         f"{path} last logits, kernel vs plain path", res["last_logits"],
         plain_logits)}
-    kv = 0.0
-    for i, (kc, pc) in enumerate(zip(res["cache"], plain_cache)):
-        for n in ("k", "v"):
+    worst = {}
+    for i, (kc, pc) in enumerate(zip(cache, plain_cache)):
+        for n in pc:
             for r in range(cfg.repeats):
-                kv = max(kv, rel_l2_or_fail(
+                got = kc[n][r, :, :prompt] if n in ("k", "v") else kc[n][r]
+                worst[n] = max(worst.get(n, 0.0), rel_l2_or_fail(
                     f"{path} layer {r * len(cfg.layer_pattern) + i} {n}",
-                    kc[n][r, :, :prompt], pc[n][r]))
-    checks["cache_max_rel_l2"] = kv
+                    got, pc[n][r]))
+    checks["cache_max_rel_l2"] = worst
     # decode teacher-forced with the kernel path's tokens from both caches
     plain_cache = stack.widen_cache(plain_cache, gen)
     worst, flips = 0.0, 0
     for j in range(gen - 1):
         tok = toks[:, j:j + 1]
-        lk, _ = stack.decode_step(params, tok, res["cache"], prompt + j, cfg)
+        lk, _ = stack.decode_step(params, tok, cache, prompt + j, cfg)
         lp, _ = stack.decode_step(params, tok, plain_cache, prompt + j, cfg)
         if not torch.equal(lk.argmax(-1).to(torch.int32), toks[:, j + 1]):
             fail(f"{path}: decode step {j} does not repeat the served token")
@@ -2574,8 +2651,8 @@ def phase_lm(path, opts, records):
     checks.update(decode_logits_max_rel_l2=worst,
                   decode_argmax_differences=flips)
     decode_window = profile_window(lambda j: stack.decode_step(
-        params, toks[:, j:j + 1], res["cache"], prompt + j, cfg), 3)
-    del res, plain_cache, plain_logits, lk, lp
+        params, toks[:, j:j + 1], cache, prompt + j, cfg), 3)
+    del res, cache, states, plain_cache, plain_logits, lk, lp
     torch.cuda.empty_cache()
 
     # both fp32 paths against fp64 at a shorter prompt
@@ -2599,8 +2676,194 @@ def phase_lm(path, opts, records):
     window = profile_window(lambda i: stack.prefill(params, prompts, cfg), 1,
                             share_of="flash")
     emit({"phase": path, "profile": "one prefill", **window})
-    del params, prompts, built
+    del prompts, built
     torch.cuda.empty_cache()
+    emit({"phase": path, "seconds": time.perf_counter() - t_path})
+    return launches, (cfg, params)
+
+
+def to_host(tree):
+    """A dict of card tensors copied to the host, the card's freed."""
+    return {n: tree.pop(n).cpu() for n in list(tree)}
+
+
+def on_card(host):
+    """The host tensors back on the card one at a time, in order."""
+    return (t.to(DEV) for t in host.values())
+
+
+def updated(cfg, params, grads, opt_cfg):
+    """Step 0's updated parameters: a copy of ``params`` after one Adam
+    step (fresh moments) on ``grads`` (consumed), on the host."""
+    from repro_torch.models.transformer import lm
+    from repro_torch.optim import adam
+    work = {n: t.clone() for n, t in lm.flatten_params(params).items()}
+    opt = adam.init_state(work, opt_cfg)
+    adam.apply_updates_(work, grads, opt, opt_cfg)
+    del opt
+    out = to_host(work)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_step0_checks(path, cfg, params, batch, opt_cfg):
+    """Step 0 recomputed from ``params`` on the kernel path and on the
+    plain path: the losses within 1e-5 relative, every gradient and
+    every parameter after the step's Adam update within 1e-3 relative
+    L2 per tensor; both fp32 paths' loss within 1e-5 and gradients
+    within 1e-3 of an fp64 recompute at ``TRAIN_FP64_SEQ`` tokens. The
+    fp64 recompute runs with remat off, so it also holds the fp32 paths'
+    checkpointed gradients against a plain autograd. One path's
+    gradients wait on the host while the other's are on the card
+    (gemma2-2b's take 10.4 GB)."""
+    from repro_torch.models.transformer import lm
+
+    def grads(backend, p, b, c=cfg):
+        loss, g = lm.make_grad_fn(c, backend=backend)(p, b)
+        return loss.item(), g
+
+    out = {}
+    # the fp64 yardstick on the batch's first TRAIN_FP64_SEQ tokens
+    short = {k: v[:1, :TRAIN_FP64_SEQ] for k, v in batch.items()}
+    lk, gk = grads("cuda", params, short)
+    gk = to_host(gk)
+    lp, gp = grads("eager", params, short)
+    gp = to_host(gp)
+    p64 = _to_double(params)
+    l64, g64 = grads("eager", p64, short,
+                     dataclasses.replace(cfg, remat=False))
+    del p64
+    names = list(g64)
+    for what, loss in (("kernel", lk), ("plain", lp)):
+        if not abs(loss - l64) <= 1e-5 * abs(l64):
+            fail(f"{path} step 0 fp64 check: the {what} path's loss {loss} "
+                 f"against {l64}")
+    out["fp64"] = {"tokens": TRAIN_FP64_SEQ, "remat": False, "loss": l64,
+                   "loss_kernel": lk, "loss_plain": lp,
+                   "gradients": against_fp64(
+                       f"{path} step 0 fp64 check, gradient", on_card(gk),
+                       on_card(gp), (g64[n] for n in names), names)}
+    del gk, gp, g64
+    torch.cuda.empty_cache()
+
+    # step 0 at the path's batch: kernel path against plain path
+    lk, gk = grads("cuda", params, batch)
+    gk = to_host(gk)
+    lp, gp = grads("eager", params, batch)
+    if not abs(lk - lp) <= 1e-5 * abs(lp):
+        fail(f"{path} step 0 loss: kernel path {lk}, plain path {lp}")
+    names = list(gp)
+    out["loss_kernel"], out["loss_plain"] = lk, lp
+    out["gradient_max_rel_l2"] = kernel_vs_plain(
+        f"{path} step 0 gradient", on_card(gk), (gp[n] for n in names),
+        names)
+    plain_new = updated(cfg, params, gp, opt_cfg)
+    kernel_new = updated(cfg, params, {n: t.to(DEV) for n, t in gk.items()},
+                         opt_cfg)
+    del gk
+    out["updated_max_rel_l2"] = kernel_vs_plain(
+        f"{path} step 0 updated parameter", on_card(kernel_new),
+        on_card(plain_new), names)
+    del kernel_new, plain_new
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(path, opts, built=None):
+    """LM training at full width and depth through
+    ``repro_torch.launch.train``'s ``--workload lm`` path (``train_lm``),
+    from random weights of ``--seed`` (``built``: phase 6's, the same
+    draw): step 0 held against the plain path and fp64
+    (:func:`train_step0_checks`; for a path without B9 the two fp32 paths
+    run the same operations), and for Mamba2 a 2-microbatch gradient
+    against the 1-microbatch one on the same batch (loss within 1e-5,
+    gradients within 1e-4 relative L2; the reference's own test); then
+    the run's steps, counts zeroed before and read after (B9: 2 launches
+    per attention layer a step, the forward's and the recompute's);
+    finite losses, the last below the first; one more step and one
+    forward under the profiler (B9's share of each)."""
+    from repro_torch.data.tokens import BigramStream
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import lm
+    from repro_torch.optim import adam
+
+    t_path = time.perf_counter()
+    arch, batch, seq, steps = LM_TRAIN_PATHS[path]
+    args = train.parser().parse_args([
+        "--workload", "lm", "--device", DEV, "--arch", arch, "--batch",
+        str(batch), "--seq", str(seq), "--steps", str(steps), "--seed",
+        str(opts.seed)])
+    t0 = time.perf_counter()
+    reused = built is not None
+    cfg, params = built if reused else train.build_lm(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if not cfg.remat:
+        fail(f"{path}: {arch}'s config does not set remat")
+    n_params = sum(t.numel() for t in _tensors(params))
+    n_attn = n_attention(cfg)
+    opt_cfg = adam.AdamConfig(lr=args.lr)
+    # the launcher's first batch, drawn again from the same stream
+    toks, labels = BigramStream(cfg.vocab, seed=opts.seed).batch(
+        batch, seq, device=DEV)
+    b0 = {"tokens": toks, "labels": labels}
+    checks = train_step0_checks(path, cfg, params, b0, opt_cfg)
+    if batch > 1:
+        l1, g1 = lm.make_grad_fn(cfg)(params, b0)
+        l2, g2 = lm.make_grad_fn(cfg, num_microbatches=2)(params, b0)
+        if not abs(l1.item() - l2.item()) <= 1e-5 * abs(l1.item()):
+            fail(f"{path}: 2 microbatches' loss {l2.item()} against "
+                 f"{l1.item()}")
+        names = list(g1)
+        checks["microbatches"] = {
+            "n": 2, "loss_1": l1.item(), "loss_2": l2.item(),
+            "gradient_max_rel_l2": kernel_vs_plain(
+                f"{path} 2 microbatches' gradient", (g2[n] for n in names),
+                (g1[n] for n in names), names, tol=1e-4)}
+        del g1, g2
+    emit({"phase": path, "recompute": "step 0, plain path and fp64 on the "
+          "card", **checks})
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    run = train.train_lm(args, (cfg, params))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = 2 * n_attn * steps
+    if launches["flash_attention"] != want:
+        fail(f"{path}: B9 launched {launches['flash_attention']} times, "
+             f"not 2 x {n_attn} attention layers x {steps} steps")
+    losses = run["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
+            losses[0]:
+        fail(f"{path}: losses {losses}")
+    warm = run["step_seconds"][1:]
+    step_ms = sum(warm) / len(warm) * 1e3
+    emit({"phase": path, "arch": arch, "params": n_params,
+          "init_seconds": init_s, "params_reused_from_serving": reused,
+          "batch": batch, "seq": seq, "steps": steps, "remat": cfg.remat,
+          "losses": losses,
+          "step_ms": [t * 1e3 for t in run["step_seconds"]],
+          "warm_step_ms": step_ms,
+          "tokens_per_s": batch * seq / step_ms * 1e3,
+          "launches": launches, "peak_memory_gib": peak})
+
+    params, opt = run["params"], run["opt_state"]
+    del run
+    step = lm.make_train_step(cfg, opt_cfg)
+    window = profile_window(lambda i: step(params, opt, b0), 1,
+                            share_of="flash")
+    emit({"phase": path, "profile": "one train step", **window})
+    with torch.no_grad():
+        window = profile_window(lambda i: lm.loss_fn(params, b0, cfg), 1,
+                                share_of="flash")
+    emit({"phase": path, "profile": "one forward (no gradient)", **window})
+    del params, opt, step, b0, toks, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": path, "seconds": time.perf_counter() - t_path})
     return launches
 
 
@@ -2621,6 +2884,36 @@ def _to_double(tree):
     if isinstance(tree, (list, tuple)):
         return [_to_double(v) for v in tree]
     return tree.double()
+
+
+def phases_lm(opts, records, paths):
+    """Phases 6-8: B9's adversarial cases; serving the dense archs
+    (``LM_PATHS``); training (``LM_TRAIN_PATHS``, gemma2-2b from phase 6's
+    weights, the same draw); serving the Mamba2, zamba2 and MoE archs
+    (``LM_BLOCK_PATHS``). Adds each path's counts to ``paths``."""
+    records["flash_attention"] = Record(
+        "flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:30",
+        flop_rate=TF32X3_FLOP_PER_S)
+    adversarial_flash()
+    trained = {arch for arch, *_ in LM_TRAIN_PATHS.values()}
+    kept = {}
+    for path in LM_PATHS:
+        paths[path], built = phase_lm(path, opts, records)
+        if built[0].name in trained:
+            kept[built[0].name] = built
+        del built
+        gc.collect()
+        torch.cuda.empty_cache()
+    for path, (arch, *_) in LM_TRAIN_PATHS.items():
+        paths[path] = phase_lm_train(path, opts, kept.pop(arch, None))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for path in LM_BLOCK_PATHS:
+        paths[path], built = phase_lm(path, opts, records)
+        del built
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def window_only(opts):
@@ -2649,6 +2942,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (no kernels or ok line)")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="phase 1, then the LM phases 6-8 alone (no "
+                         "kernels or ok line)")
     ap.add_argument("--parent-src", default=None,
                     help="the src directory of another tree of the port: "
                          "phase 4b also prints that tree's serial LABOR-0 "
@@ -2698,6 +2994,13 @@ def main():
                     for k, v in _build.BUILD_LOG.items()},
           "flash_attention_sass": tensor_core_sass(_build)})
 
+    records = {}
+    if opts.lm_only:
+        phases_lm(opts, records, {})
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "lm_only": True})
+        return
+
     args = serve.parser().parse_args([
         "--workload", "gnn", "--driver", "off",
         "--device", DEV, "--dataset", "products",
@@ -2716,7 +3019,7 @@ def main():
     key0 = rng_lib.split(rng_lib.key(args.seed + 1))[1]
 
     # -- phase 2: kernels against their plain versions ---------------------
-    records = {
+    records.update({
         "compact": Record("compact", "cuda",
                           "src/repro_torch/csrc/frontier.cu",
                           "src/repro/kernels/frontier/parallel.py:317, "
@@ -2756,7 +3059,7 @@ def main():
             "src/repro/kernels/edge_softmax/edge_softmax.py:42",
             status="redesigned: edge-parallel over the live prefix, one "
                    "streaming fill, sums in double"),
-    }
+    })
     trials = {"compact": [], "hash_dedup": [], "compact_perm": [],
               "spmm": [], "segment_select": [], "masked_cdf_draw": []}
     phase_kernels(engine, data, seeds0, key0, opts.reps, records, trials)
@@ -2846,21 +3149,13 @@ def main():
     # -- phase 5: where the serving time goes -------------------------------
     phase_profile(eng_k, data, model, seeds0, key0)
 
-    # -- phase 6: LM serving, with B9 ---------------------------------------
+    # -- phases 6-8: LM serving and training, with B9 ----------------------
     # the GNN phases' tensors go first (GATv2 peaked at 56 GiB)
     del built, ds, engine, data, model, eng_k, eng_e, logits_k, logits_e
     del blocks_k, blocks_e, flags_k, flags_e, seeds0, seeds_t
     gc.collect()
     torch.cuda.empty_cache()
-    records["flash_attention"] = Record(
-        "flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/flash_attention.py:30",
-        flop_rate=TF32X3_FLOP_PER_S)
-    adversarial_flash()
-    for path in LM_PATHS:
-        paths[path] = phase_lm(path, opts, records)
-        gc.collect()
-        torch.cuda.empty_cache()
+    phases_lm(opts, records, paths)
     for name, rec in records.items():
         by_path = {p: counts[name] for p, counts in paths.items()}
         rec.row["launches_by_path"] = by_path

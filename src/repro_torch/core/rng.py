@@ -228,9 +228,10 @@ def _hexf(bits: str) -> float:
     return struct.unpack(">d", bytes.fromhex(bits))[0]
 
 
-# XLA's CPU log1p (its LLVM IR, optimised): a rational approximation
-# x + (-x^2/2 + x^3 NUM(x)/DEN(x)) for |x| < sqrt(2) - 1, else Cephes' logf
-# polynomial on 1 + x split into mantissa and exponent
+# XLA's CPU log and log1p (their LLVM IR, optimised): Cephes' logf
+# polynomial on the argument split into mantissa and exponent; log1p takes
+# a rational approximation x + (-x^2/2 + x^3 NUM(x)/DEN(x)) for
+# |x| < sqrt(2) - 1 and the log of 1 + x elsewhere
 _LOG1P_SMALL = _hexf("3FDA8279A0000000")
 _LOG1P_DEN = tuple(map(_hexf, (
     "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
@@ -249,19 +250,19 @@ _LOGF_LN2_HI = _hexf("3FE6300000000000")
 _MIN_NORMAL = _hexf("3810000000000000")
 
 
-def log1p(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``log1p`` as XLA's CPU code computes it, bit for bit: the
-    same operations in the same order, each rounded to float32, with the
+def log(y: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` as XLA's CPU code computes it, bit for bit: Cephes'
+    logf polynomial on y split into mantissa and exponent, the same
+    operations in the same order, each rounded to float32, with the
     products that LLVM contracts into fused multiply-adds formed by
-    :func:`fma`. ``torch.log1p`` differs from it in the last bit for
-    about 8% of the arguments -u^2 that ``erf_inv`` feeds it."""
-    dev = x.device
+    :func:`fma`. ``torch.log`` is correctly rounded and differs from it
+    in the last bit for about 1% of arguments."""
+    dev = y.device
 
     def c(v):
         return _f32(v, dev)
 
-    # 1 + x = m 2^e with m in [sqrt(1/2), sqrt(2))
-    y = x + 1.0
+    # y = m 2^e with m in [sqrt(1/2), sqrt(2))
     bits = torch.maximum(y, c(_MIN_NORMAL)).view(torch.int32)
     e = ((bits >> 23) - 127).float() + 1.0
     m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
@@ -275,10 +276,23 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
     p1 = fma(fma(t, c(a[3]), c(a[4])), t, c(a[5]))
     p2 = fma(fma(t, c(a[6]), c(a[7])), t, c(a[8]))
     r = fma(fma(fma(p0, t3, p1), t3, p2), t3, e * c(_LOGF_LN2_LO))
-    big = fma(e, c(_LOGF_LN2_HI), fma(-z, c(0.5), t) + r)
-    big = torch.where(y == math.inf, y, big)
-    big = torch.where(y == 0, c(-math.inf), big)
-    big = torch.where(y < 0, c(math.nan), big)
+    out = fma(e, c(_LOGF_LN2_HI), fma(-z, c(0.5), t) + r)
+    out = torch.where(y == math.inf, y, out)
+    out = torch.where(y == 0, c(-math.inf), out)
+    return torch.where(y < 0, c(math.nan), out)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log1p`` as XLA's CPU code computes it, bit for bit
+    (as :func:`log`): :func:`log` of 1 + x, and for |x| < sqrt(2) - 1 a
+    rational approximation. ``torch.log1p`` differs from it in the last
+    bit for about 8% of the arguments -u^2 that ``erf_inv`` feeds it."""
+    dev = x.device
+
+    def c(v):
+        return _f32(v, dev)
+
+    big = log(x + 1.0)
     # |x| small: x - x^2/2 + x^3 P(x)/Q(x)
     x2 = x * x
     num = c(_LOG1P_NUM[0]) + x * 0.0

@@ -34,7 +34,8 @@ and ``--inject`` hands a fault plan (``runtime/inject.py``:
 LM serving (``--workload lm``, the default workload, as in the
 reference): greedy decode of a batch of random prompts from a model
 with random weights, the reference's ``serve_lm``, at the full width of
-``--arch`` (or ``--reduce``d):
+``--arch`` (any registered one: gemma2-2b, stablelm-1.6b, mamba2-370m,
+zamba2-2.7b, qwen3-moe-235b-a22b; or ``--reduce``d):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
       --arch gemma2-2b --batch 1 --prompt-len 32768 --gen 32
@@ -42,7 +43,9 @@ with random weights, the reference's ``serve_lm``, at the full width of
 The weights come from ``init_params(key(seed))`` and the prompts from
 ``randint`` with the same key, as in the reference, both bit for bit;
 the prefill runs every layer's attention through the flash kernel (B9)
-on ``cuda``; the cache is widened by ``--gen`` after it. Prints the
+on ``cuda`` (zamba2's shared attention once per use); the K/V caches
+are widened by ``--gen`` after it, and Mamba2's conv and SSM states
+carried from the prefill into each decode step. Prints the
 reference's two lines (``prefill ... tok/s``, ``sample: [...]``).
 """
 from __future__ import annotations
@@ -220,20 +223,16 @@ def serve_gnn_driver(args, built=None):
     return report
 
 
-def build_lm(args):
-    """Config, weights and prompts of one LM serving run: ``init_params``
-    and the prompts from the same key, as the reference does."""
-    from repro_torch import configs as cfgreg
-    from repro_torch.configs.reduce import reduce_cfg
-    from repro_torch.models.transformer import stack
+def build_lm(args, num_layers=None):
+    """Config, weights and prompts of one LM serving run: the training
+    launcher's ``build_lm`` and the prompts from the same key, as the
+    reference does."""
+    from repro_torch.launch import train
 
-    cfg = cfgreg.get_config(args.arch, dtype="float32")
-    if args.reduce:
-        cfg = reduce_cfg(cfg)
-    key = rng_lib.key(args.seed)
-    params = stack.init_params(key, cfg, device=args.device)
-    prompts = rng_lib.randint(key, (args.batch, args.prompt_len), 0,
-                              cfg.vocab, device=args.device)
+    cfg, params = train.build_lm(args, num_layers)
+    prompts = rng_lib.randint(rng_lib.key(args.seed),
+                              (args.batch, args.prompt_len), 0, cfg.vocab,
+                              device=args.device)
     return cfg, params, prompts
 
 

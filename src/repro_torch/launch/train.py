@@ -1,6 +1,7 @@
-"""GNN training on the card (twin of ``repro.launch.train``, ``--workload
-gnn``): the paper's GCN, GraphSAGE or GATv2 (``--model``) trained on
-sampled blocks with Adam, printing the reference launcher's JSON report.
+"""Training on the card (twin of ``repro.launch.train``). ``--workload
+gnn`` (the default): the paper's GCN, GraphSAGE or GATv2 (``--model``)
+trained on sampled blocks with Adam, printing the reference launcher's
+JSON report.
 
   PYTHONPATH=src python -m repro_torch.launch.train --workload gnn \\
       --dataset products --scale 0.25 --sampler labor-0 \\
@@ -16,7 +17,18 @@ sampled blocks with Adam, printing the reference launcher's JSON report.
 ``--seed`` the run starts from the reference's parameters and draws the
 reference's batches and sampled sets. ``--model`` takes ``gcn`` (the
 default), ``sage`` or ``gatv2`` (8 heads of 32); the hidden width is the
-reference's 256. ``--workload lm`` is not ported yet.
+reference's 256.
+
+``--workload lm``: any registered arch (``--arch``: gemma2-2b,
+stablelm-1.6b, mamba2-370m, zamba2-2.7b, qwen3-moe-235b-a22b) at full
+width, or shrunk with ``--reduce``, trained for ``--steps`` Adam steps
+(lr ``--lr``, no schedule) on ``--batch`` x ``--seq`` tokens of the
+reference's bigram stream, from ``init_params(key(seed))``; both bit for
+bit the reference's. Prints ``step N loss`` every 10 steps and the
+reference's final ``{"first_loss", "final_loss"}`` line:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --workload lm \
+      --arch mamba2-370m --reduce --device cpu --steps 20 --batch 4 --seq 64
 
 The reference's runtime flags: ``--ckpt-dir`` (resume from the newest
 verified checkpoint, save every 100 steps and at the end; the format is
@@ -36,7 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import sys
+import time
 
 import torch
 
@@ -84,6 +96,12 @@ def parser() -> argparse.ArgumentParser:
                     help="fault-injection plan (runtime/inject.py spec, "
                          "e.g. 'nan_grad@5,torn_ckpt@1'); joined to "
                          "$REPRO_INJECT")
+    # lm
+    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--reduce", action="store_true",
+                    help="shrink the arch for CPU-scale runs")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default=None)
@@ -144,16 +162,68 @@ def train_report(ds, cfg):
     return report, out
 
 
+def build_lm(args, num_layers=None):
+    """Config and initial parameters of one LM run, training or serving
+    (the reference's ``init_params(key(seed))``). ``num_layers`` cuts
+    the depth (a multiple of the arch's pattern) and keeps the width."""
+    import dataclasses
+
+    from repro_torch import configs as cfgreg
+    from repro_torch.configs.reduce import reduce_cfg
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.models.transformer import stack
+
+    cfg = cfgreg.get_config(args.arch, dtype="float32")
+    if args.reduce:
+        cfg = reduce_cfg(cfg)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    return cfg, stack.init_params(rng_lib.key(args.seed), cfg,
+                                  device=args.device)
+
+
+def train_lm(args, built=None):
+    """``--steps`` Adam steps of the LM from ``built`` (``build_lm``'s,
+    updated in place) on the bigram stream of ``--seed``. Prints the
+    reference's lines; returns the report with the run's losses, each
+    step's host-clock seconds (each ends in the loss's read, a sync on
+    the card), the parameters and the optimizer state."""
+    from repro_torch.data.tokens import BigramStream
+    from repro_torch.models.transformer import lm
+    from repro_torch.optim import adam
+
+    cfg, params = built or build_lm(args)
+    opt_cfg = adam.AdamConfig(lr=args.lr)
+    opt = lm.init_opt_state(params, opt_cfg)
+    step = lm.make_train_step(cfg, opt_cfg)
+    stream = BigramStream(cfg.vocab, seed=args.seed)
+    losses, seconds = [], []
+    for i in range(args.steps):
+        t0 = time.perf_counter()
+        toks, labels = stream.batch(args.batch, args.seq, device=args.device)
+        params, opt, m = step(params, opt, {"tokens": toks,
+                                            "labels": labels})
+        losses.append(float(m["loss"]))
+        seconds.append(time.perf_counter() - t0)
+        if (i + 1) % 10 == 0:
+            print(f"step {i+1} loss {losses[-1]:.4f}")
+    report = {"first_loss": losses[0], "final_loss": losses[-1]}
+    print(json.dumps(report))
+    return {**report, "losses": losses, "step_seconds": seconds,
+            "params": params, "opt_state": opt}
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.workload != "gnn":
-        sys.exit("repro_torch.launch.train: --workload lm is not ported yet")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda was asked for but CUDA is not "
                            "available (use --device cpu)")
     # fp32 products stay fp32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.workload == "lm":
+        run = train_lm(args)
+        return {k: run[k] for k in ("first_loss", "final_loss")}
     report, _ = train_report(dataset(args), config(args))
     print(json.dumps(report, indent=1))
     return report

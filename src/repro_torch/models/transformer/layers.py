@@ -1,15 +1,18 @@
-"""Transformer building blocks of the dense families (twin of
+"""Transformer building blocks (twin of
 ``repro.models.transformer.layers``): norms, rotary embeddings, GQA
-attention with a sliding window and a logit softcap, gated MLPs.
-Parameters are plain dicts of tensors, the reference's layout.
+attention with a sliding window and a logit softcap, gated MLPs,
+scatter-dispatch MoE with the optional LABOR-style Poisson capacity, and
+Mamba2's chunked SSD. Parameters are plain dicts of tensors, the
+reference's layout.
 
 Attention on the full-sequence paths (:func:`attn_apply`, and the
 prefill of ``stack``) takes a graph-ops style backend: ``"cuda"`` runs
 every causal self-attention through the flash kernel (B9,
 ``kernels/flash_attention``), ``"eager"`` through :func:`_attend_flags`,
 the reference's plain path. One-token decode (:func:`attn_decode`) is
-plain torch on both, as in the reference. MoE, Mamba, shared-attention
-and cross-attention blocks are not ported yet (``ROADMAP.md``).
+plain torch on both, as in the reference. MoE and Mamba2 are plain torch
+on both backends: the reference has no kernel for them. Cross-attention
+is not ported yet (``ROADMAP.md``).
 
 The math runs in float32 for float32 and bfloat16 inputs, as the
 reference's, and in float64 for float64 inputs (the fp64 yardstick of
@@ -17,6 +20,7 @@ reference's, and in float64 for float64 inputs (the fp64 yardstick of
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -24,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import rng as rng_lib
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.transformer.config import TransformerConfig
+from repro_torch.models.transformer.config import MoEConfig, TransformerConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -310,3 +314,335 @@ def mlp_apply(p, x, cfg: TransformerConfig):
     if cfg.post_norms:
         out = norm_apply(p["post_norm"], out, cfg)
     return x + out
+
+
+# ---------------------------------------------------------------------------
+# MoE: scatter dispatch with capacity; optional LABOR Poisson capacity
+# ---------------------------------------------------------------------------
+
+#: the reference's default salt of the Poisson capacity's per-(token,
+#: expert) draws
+MOE_SALT = 0x9E3779B9
+
+
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def moe_init(key, cfg: TransformerConfig, device="cpu"):
+    m = cfg.moe
+    ks = rng_lib.split(key, 6)
+    dt = _dtype(cfg)
+    E, d, f = m.num_experts, cfg.d_model, m.d_expert
+    scale = _f32(1.0 / math.sqrt(d), device)
+    # a 0-d device tensor as divisor: a Python one is a reciprocal
+    # multiply on the card
+    root_f = _f32(math.sqrt(f), device)
+    p = {
+        "router": dense_init(ks[0], d, E, torch.float32, device=device),
+        "ewi": (rng_lib.normal(ks[1], (E, d, f), device) * scale).to(dt),
+        "ewg": (rng_lib.normal(ks[2], (E, d, f), device) * scale).to(dt),
+        "ewo": (rng_lib.normal(ks[3], (E, f, d), device) / root_f).to(dt),
+        "pre_norm": norm_init(cfg, device=device),
+    }
+    if m.shared_expert:
+        p["shared_wi"] = dense_init(ks[4], d, f, dt, device=device)
+        p["shared_wg"] = dense_init(ks[5], d, f, dt, device=device)
+        p["shared_wo"] = dense_init(rng_lib.fold_in(ks[4], 1), f, d, dt,
+                                    device=device)
+    return p
+
+
+def _moe_capacity(m: MoEConfig, tokens: int) -> int:
+    c = int(tokens * m.top_k / m.num_experts * m.capacity_factor) + 8
+    return min(max(c - c % -8, 8), tokens)  # round up to 8
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest along the last axis, ties to the
+    lower index (a stable descending sort; ``torch.topk`` makes no
+    promise on ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(probs: torch.Tensor, m: MoEConfig, C: int,
+              salt: int = MOE_SALT):
+    """The reference's group-local routing of ``moe_apply`` on the router
+    probabilities ``probs`` (B, S, E): per batch row, each token's top-k
+    experts, the position of each (token, j) in its expert's queue by a
+    cumsum along the sequence, and the capacity ``C``. With
+    ``m.poisson_capacity`` an oversubscribed expert keeps each token
+    with probability C / n_e (a hash draw per (token, expert), LABOR's
+    variance-matched keep) and weights it by the inverse; else the first
+    C in queue order are kept. Returns experts (B, S, k) int64, and
+    slots (expert * C + position; int64), keep masks and weights
+    (keep x gate x the Poisson correction), each (B, k, S)."""
+    B, S, E = probs.shape
+    k = m.top_k
+    dev = probs.device
+    gates, experts = _top_k(probs, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    counts = torch.zeros(B, E, dtype=torch.int64, device=dev)
+    token_ids = torch.arange(B * S, device=dev).reshape(B, S)
+    cap = torch.tensor(float(C), dtype=probs.dtype, device=dev)
+    slots, keeps, ws = [], [], []
+    for j in range(k):
+        ex = experts[..., j]                                    # (B,S)
+        oh = F.one_hot(ex, E)                                   # (B,S,E)
+        pos_te = torch.cumsum(oh, 1) - oh + counts[:, None, :]
+        pos_j = torch.gather(pos_te, -1, ex[..., None])[..., 0]
+        counts = counts + oh.sum(1)
+        if m.poisson_capacity:
+            n_tok = torch.gather(counts.to(probs.dtype), 1, ex)
+            p_keep = torch.clamp(cap / torch.clamp(n_tok, min=1.0), max=1.0)
+            r = rng_lib.hash_uniform_edge(salt, token_ids, ex)
+            sel = r < p_keep
+            oh_kept = oh * sel[..., None]
+            pos_te = torch.cumsum(oh_kept, 1) - oh_kept
+            pos_j = torch.gather(pos_te, -1, ex[..., None])[..., 0]
+            keep = sel & (pos_j < C)
+            w = torch.where(keep, torch.ones_like(p_keep) / p_keep,
+                            torch.zeros_like(p_keep))
+        else:
+            keep = pos_j < C
+            w = keep.to(probs.dtype)
+        slots.append(ex * C + pos_j)
+        keeps.append(keep)
+        ws.append(w * gates[..., j])
+    return (experts, torch.stack(slots, 1), torch.stack(keeps, 1),
+            torch.stack(ws, 1))
+
+
+def moe_apply(p, x, cfg: TransformerConfig, salt: int = MOE_SALT):
+    """Scatter-dispatch MoE with group-local routing (:func:`moe_route`).
+    x: (B, S, d). Each kept (token, j) is added into its expert slot of a
+    (B, E * C, d) buffer (``index_add``: each slot takes one token, the
+    dropped ones add zeros to slot 0), the experts run as batched
+    products over (E, C), and each token sums its k slots' outputs
+    weighted by :func:`moe_route`'s weights, plus the shared expert."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.num_experts, m.top_k
+    C = _moe_capacity(m, S)
+    md = _math(x)
+    h = norm_apply(p["pre_norm"], x, cfg)
+    probs = torch.softmax(h.to(md) @ p["router"].to(md), dim=-1)
+    _, slots, keeps, ws = moe_route(probs, m, C, salt)
+    idx = torch.where(keeps, slots, 0)                          # (B,k,S)
+    flat = (idx + torch.arange(B, device=x.device)[:, None, None]
+            * (E * C)).reshape(-1)
+    src = (h[:, None] * keeps[..., None].to(h.dtype)).reshape(-1, d)
+    xd = torch.zeros(B * E * C, d, dtype=h.dtype,
+                     device=x.device).index_add(0, flat, src)
+    xe = xd.view(B, E, C, d)
+    up = torch.einsum("becd,edf->becf", xe, p["ewi"])
+    gate = torch.einsum("becd,edf->becf", xe, p["ewg"])
+    ye = torch.einsum("becf,efd->becd", _act(cfg, gate) * up, p["ewo"])
+    got = ye.reshape(B * E * C, d)[flat].view(B, k, S, d)
+    out = torch.einsum("bksd,bks->bsd", got.to(md), ws.to(md))
+    if m.shared_expert:
+        sup = _act(cfg, h @ p["shared_wg"]) * (h @ p["shared_wi"])
+        out = out + (sup @ p["shared_wo"]).to(md)
+    return x + out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, chunked -- Dao & Gu 2024 state-space duality form)
+# ---------------------------------------------------------------------------
+
+def _a_log(nh: int, device) -> torch.Tensor:
+    """``log(jnp.linspace(1, 16, nh))`` in float32 as the reference
+    computes it on the CPU, bit for bit (checked for every nh up to 352;
+    the registry's are 8 reduced, 32 and 80). XLA simplifies jnp's
+    ``1 * (1 - i / div) + 16 * (i / div)`` into ``fma(i, 16 r, 1 - i r)``
+    with ``r = 1 / div`` in float32 (a division by a constant becomes a
+    product by its reciprocal, and LLVM contracts the last product into
+    the add), the end point 16 appended; XLA's log is :func:`rng.log`
+    (``torch.log`` is correctly rounded and differs in the last bit).
+    Computed on the CPU, then moved."""
+    if nh == 1:
+        lin = torch.ones(1)
+    else:
+        i = torch.arange(nh - 1, dtype=torch.float32)
+        r = _f32(1.0, "cpu") / _f32(nh - 1, "cpu")
+        lin = torch.cat([rng_lib.fma(i, (16.0 * r).expand_as(i), 1.0 - i * r),
+                         torch.full((1,), 16.0)])
+    return rng_lib.log(lin).to(device)
+
+
+def mamba_init(key, cfg: TransformerConfig, device="cpu"):
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    nh = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    ks = rng_lib.split(key, 4)
+    dt = _dtype(cfg)
+    return {
+        "in_proj": dense_init(ks[0], d,
+                              2 * d_in + 2 * s.n_groups * s.d_state + nh, dt,
+                              device=device),
+        "conv_w": (rng_lib.normal(ks[1], (s.d_conv, conv_dim), device)
+                   * _f32(0.2, device)).to(dt),
+        "conv_b": torch.zeros(conv_dim, dtype=dt, device=device),
+        "A_log": _a_log(nh, device),
+        "D": torch.ones(nh, dtype=torch.float32, device=device),
+        "dt_bias": torch.zeros(nh, dtype=torch.float32, device=device),
+        "out_proj": dense_init(ks[2], d_in, d, dt, device=device),
+        "pre_norm": norm_init(cfg, device=device),
+        "gate_norm": {"scale": torch.zeros(d_in, dtype=dt, device=device)},
+    }
+
+
+def _segsum(x):
+    """log-space segment sums: out[..., i, j] = sum_{j<m<=i} x[..., m],
+    -inf above the diagonal (its exp is 0, and so is its gradient)."""
+    T = x.shape[-1]
+    xc = torch.cumsum(x, -1)
+    out = xc[..., :, None] - xc[..., None, :]
+    mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))
+    return torch.where(mask, out, torch.tensor(-math.inf, dtype=x.dtype,
+                                               device=x.device))
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def ssd_chunked(x, dtv, A, Bm, Cm, chunk, init_state=None):
+    """SSD forward. x: (b, s, h, p); dtv: (b, s, h) after softplus; A:
+    (h,) negative; Bm, Cm: (b, s, g, n). Returns y (b, s, h, p) and the
+    final state (b, h, p, n). A length that is no multiple of ``chunk``
+    is padded with dt = 0 steps (decay 1, no contribution to the state).
+    The reference's scan over chunks is a loop here."""
+    b, s, h, pdim = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    md = dtv.dtype      # float32, float64 on the fp64 yardstick
+    s_orig = s
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dtv = F.pad(dtv, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        s = s + pad
+    nc = s // chunk
+    rep = h // g
+
+    xr = x.reshape(b, nc, chunk, h, pdim)
+    dtr = dtv.reshape(b, nc, chunk, h)
+    Br = Bm.reshape(b, nc, chunk, g, n)
+    Cr = Cm.reshape(b, nc, chunk, g, n)
+    dA = dtr * A[None, None, None, :]             # (b,nc,Q,h) negative
+    dA_cum = torch.cumsum(dA, 2)
+
+    # intra-chunk (diagonal blocks): Y[i] += C_i . B_j^T exp(seg) dt_j x_j
+    Lm = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))          # (b,nc,h,Q,Q)
+    CB = torch.einsum("bcqgn,bckgn->bcgqk", Cr, Br)          # (b,nc,g,Q,Q)
+    CB = CB.repeat_interleave(rep, dim=2)                    # (b,nc,h,Q,Q)
+    dtx = xr * dtr[..., None]                                # (b,nc,Q,h,p)
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", (CB * Lm).to(x.dtype), dtx)
+
+    # chunk states: S_c = sum_j exp(dA_cum[end] - dA_cum[j]) dt_j B_j x_j^T
+    decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)  # (b,nc,Q,h)
+    Brep = Br.repeat_interleave(rep, dim=3).to(md)           # groups -> heads
+    SB = torch.einsum("bcqhn,bcqhp->bchpn",
+                      Brep * (dtr * decay_to_end).to(md)[..., None],
+                      xr.to(md))                             # (b,nc,h,p,n)
+
+    # inter-chunk recurrence; each chunk reads the state at its start
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])             # (b,nc,h)
+    state = (torch.zeros(b, h, pdim, n, dtype=md, device=x.device)
+             if init_state is None else init_state)
+    starts = []
+    for c in range(nc):
+        starts.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + SB[:, c]
+    prev_states = torch.stack(starts, 1)                     # (b,nc,h,p,n)
+
+    # inter-chunk output: C_i . state_start * exp(dA_cum[i])
+    Crep = Cr.repeat_interleave(rep, dim=3).to(md)
+    y_inter = (torch.einsum("bcqhn,bchpn->bcqhp", Crep, prev_states)
+               * torch.exp(dA_cum)[..., None])
+    y = y_intra.to(md) + y_inter
+    return y.reshape(b, s, h, pdim)[:, :s_orig], state
+
+
+def dataclass_rms(cfg):
+    """cfg view forcing rmsnorm (the Mamba gate norm is always RMS)."""
+    return (dataclasses.replace(cfg, norm="rmsnorm")
+            if cfg.norm != "rmsnorm" else cfg)
+
+
+def mamba_apply(p, x, cfg: TransformerConfig, conv_state=None,
+                ssm_state=None, decode: bool = False):
+    """Mamba2 block. Train/prefill: x (B, S, d), returns (y, (conv_state,
+    ssm_state)). Decode: x (B, 1, d) with both states given."""
+    s = cfg.ssm
+    B = x.shape[0]
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.head_dim
+    gdim = s.n_groups * s.d_state
+    md = _math(x)
+    h = norm_apply(p["pre_norm"], x, cfg)
+    zxbcdt = h @ p["in_proj"]
+    z, xbc, dtv = torch.split(zxbcdt, [d_in, d_in + 2 * gdim, nh], dim=-1)
+    A = -torch.exp(p["A_log"].to(md))
+
+    if not decode:
+        S = x.shape[1]
+        # causal depthwise conv over (B, S, conv_dim)
+        pad = F.pad(xbc, (0, 0, s.d_conv - 1, 0))
+        conv_state_out = pad[:, -(s.d_conv - 1):] if s.d_conv > 1 else None
+        xbc_c = sum(pad[:, i:i + S] * p["conv_w"][i] for i in range(s.d_conv))
+        xbc_c = F.silu(xbc_c + p["conv_b"])
+        xs, Bm, Cm = torch.split(xbc_c, [d_in, gdim, gdim], dim=-1)
+        xs = xs.reshape(B, S, nh, s.head_dim)
+        Bm = Bm.reshape(B, S, s.n_groups, s.d_state)
+        Cm = Cm.reshape(B, S, s.n_groups, s.d_state)
+        dtv = _softplus(dtv.to(md) + p["dt_bias"].to(md))
+        y, fin = ssd_chunked(xs, dtv, A, Bm, Cm, s.chunk, ssm_state)
+        y = y + xs.to(md) * p["D"].to(md)[None, None, :, None]
+        y = y.reshape(B, S, d_in).to(x.dtype)
+        y = norm_apply({"scale": p["gate_norm"]["scale"]}, y * F.silu(z),
+                       dataclass_rms(cfg))
+        return x + y @ p["out_proj"], (conv_state_out, fin)
+
+    # single-token decode
+    conv_in = torch.cat([conv_state.to(xbc.dtype), xbc], 1)  # (B,d_conv,C)
+    new_conv_state = conv_in[:, 1:]
+    xbc_c = torch.sum(conv_in * p["conv_w"][None], 1, keepdim=True)
+    xbc_c = F.silu(xbc_c + p["conv_b"])
+    xs, Bm, Cm = torch.split(xbc_c[:, 0], [d_in, gdim, gdim], dim=-1)
+    xs = xs.reshape(B, nh, s.head_dim)
+    Bm = Bm.reshape(B, s.n_groups, s.d_state)
+    Cm = Cm.reshape(B, s.n_groups, s.d_state)
+    dtv = _softplus(dtv[:, 0].to(md) + p["dt_bias"].to(md))     # (B,nh)
+    rep = nh // s.n_groups
+    dec = torch.exp(dtv * A[None])                               # (B,nh)
+    Brep = Bm.repeat_interleave(rep, dim=1).to(md)               # (B,nh,n)
+    Bx = ((Brep * dtv[..., None])[:, :, None, :]
+          * xs.to(md)[..., None])                                # (B,nh,p,n)
+    new_ssm = ssm_state.to(md) * dec[..., None, None] + Bx
+    Crep = Cm.repeat_interleave(rep, dim=1).to(md)
+    y = torch.einsum("bhn,bhpn->bhp", Crep, new_ssm)
+    y = y + xs.to(md) * p["D"].to(md)[None, :, None]
+    y = y.reshape(B, 1, d_in).to(x.dtype)
+    y = norm_apply({"scale": p["gate_norm"]["scale"]}, y * F.silu(z),
+                   dataclass_rms(cfg))
+    return x + y @ p["out_proj"], (new_conv_state, new_ssm)
+
+
+def mamba_cache_spec(cfg: TransformerConfig, batch, device="cpu"):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    return {
+        "conv": torch.zeros(batch, s.d_conv - 1, conv_dim, dtype=_dtype(cfg),
+                            device=device),
+        "ssm": torch.zeros(batch, nh, s.head_dim, s.d_state,
+                           dtype=torch.float32, device=device),
+    }

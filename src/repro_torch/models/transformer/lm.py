@@ -1,6 +1,14 @@
 """LM-level entry points (twin of ``repro.models.transformer.lm``): the
-loss, and the prefill / greedy serve step factories. The train step
-(``make_train_step``) comes with the LM training slice (``ROADMAP.md``).
+loss, the train step (microbatched gradient accumulation included) and
+the prefill / greedy serve step factories.
+
+The train step updates the model in place: the nested parameter tree
+(dicts, and per-repeat lists under ``"layers"``) is flattened into the
+name -> tensor dict of ``optim.adam`` (:func:`flatten_params`; names are
+the tree's paths, e.g. ``layers/0/3/mix/wq``), and
+``adam.apply_updates_`` writes the new values into those tensors. The
+reference's ``input_specs`` / ``cache_specs`` (ShapeDtypeStructs for its
+multi-pod dry run) are not ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -10,6 +18,9 @@ import torch
 
 from repro_torch.models.transformer import stack
 from repro_torch.models.transformer.config import TransformerConfig
+from repro_torch.optim import adam
+
+_ACCUM = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def cross_entropy(logits, labels):
@@ -26,6 +37,110 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: TransformerConfig,
             backend: Optional[str] = None):
     logits = stack.forward(params, batch["tokens"], cfg, backend=backend)
     return cross_entropy(logits.float(), batch["labels"])
+
+
+def flatten_params(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The tree's tensors by path (``a/b/0/c``), in the tree's order;
+    empty dicts (a ``shared_attn`` entry's ``mix``) give none."""
+    out: Dict[str, torch.Tensor] = {}
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, (list, tuple)) else None)
+    if items is None:
+        return {prefix: tree}
+    for k, v in items:
+        out.update(flatten_params(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def unflatten_params(flat: Dict[str, torch.Tensor], like, prefix: str = ""):
+    """The tree of ``like``'s structure with each tensor taken from
+    ``flat`` by its path."""
+    if isinstance(like, dict):
+        return {k: unflatten_params(flat, v, f"{prefix}/{k}" if prefix
+                                    else str(k)) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return [unflatten_params(flat, v, f"{prefix}/{k}" if prefix
+                                 else str(k)) for k, v in enumerate(like)]
+    return flat[prefix]
+
+
+def init_opt_state(params, opt_cfg: adam.AdamConfig) -> dict:
+    """Adam's state for the tree ``params`` (zero moments by path)."""
+    return adam.init_state(flatten_params(params), opt_cfg)
+
+
+def make_grad_fn(cfg: TransformerConfig, backend: Optional[str] = None,
+                 num_microbatches: int = 1, accum_dtype: str = "float32"):
+    """``grad_fn(params, batch) -> (loss, grads by path)``: the loss's
+    gradient with respect to every tensor of ``params``. With ``n =
+    num_microbatches > 1`` the batch splits along axis 0 into n slices,
+    taken in turn; the gradients accumulate as ``acc + g / n`` in
+    ``accum_dtype`` and the loss as ``loss / n``, the reference's order.
+    The reference's ``unroll_microbatches`` (a switch for XLA's cost
+    analysis, which counts a scan's body once) has no counterpart: this
+    loop is always unrolled."""
+    n = num_microbatches
+    adt = _ACCUM[accum_dtype]
+
+    def grads_of(params, batch):
+        leaves = {k: t.detach().requires_grad_()
+                  for k, t in flatten_params(params).items()}
+        loss = loss_fn(unflatten_params(leaves, params), batch, cfg,
+                       backend=backend)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def grad_fn(params, batch):
+        if n == 1:
+            return grads_of(params, batch)
+        dev = batch["tokens"].device
+        # a 0-d device tensor as divisor: a Python one is a reciprocal
+        # multiply on the card
+        nt = torch.tensor(float(n), dtype=torch.float32, device=dev)
+        acc = {k: torch.zeros(t.shape, dtype=adt, device=t.device)
+               for k, t in flatten_params(params).items()}
+        loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(n):
+            mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i]
+                  for k, v in batch.items()}
+            loss, grads = grads_of(params, mb)
+            for k, g in grads.items():
+                acc[k] = acc[k] + g.to(adt) / nt.to(adt)
+            loss_acc = loss_acc + loss / nt
+            del grads
+        return loss_acc, acc
+
+    return grad_fn
+
+
+def make_train_step(cfg: TransformerConfig, opt_cfg: adam.AdamConfig,
+                    lr_schedule=None, backend: Optional[str] = None,
+                    num_microbatches: int = 1,
+                    accum_dtype: str = "float32"):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``, the reference's, with ``metrics["loss"]`` and (with
+    clipping) ``metrics["grad_norm"]``. ``batch`` holds ``tokens`` and
+    ``labels`` (B, S); ``opt_state`` comes from :func:`init_opt_state`.
+    ``params`` and ``opt_state`` are updated in place and returned.
+
+    ``backend`` replaces the reference's ``use_flash``: ``"cuda"`` runs
+    every causal self-attention of the forward (and of its recompute
+    under remat) through the flash kernel, whose backward is the plain
+    version's autograd, as the reference's ``custom_vjp``; ``"eager"``
+    the plain path; ``None``/``"auto"`` resolves by the tokens' device.
+    ``lr_schedule(step)`` scales the learning rate (e.g.
+    ``adam.cosine_schedule``)."""
+    grad_fn = make_grad_fn(cfg, backend, num_microbatches, accum_dtype)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grad_fn(params, batch)
+        lr_scale = lr_schedule(opt_state["step"]) if lr_schedule else 1.0
+        _, opt_state, metrics = adam.apply_updates_(
+            flatten_params(params), grads, opt_state, opt_cfg, lr_scale)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: TransformerConfig, backend: Optional[str] = None):

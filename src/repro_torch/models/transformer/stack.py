@@ -1,16 +1,31 @@
 """Layer-stack assembly (twin of ``repro.models.transformer.stack``):
-init / forward / prefill / decode over the repeating ``layer_pattern``.
+init / forward / prefill / decode over the repeating ``layer_pattern``:
+attention (``attn``, ``attn_local``, ``attn_global``), Mamba2
+(``mamba``) and zamba2's shared attention (``shared_attn``), each
+followed by its mixer (``mlp``, ``moe`` or none).
 
-The layers run as a Python loop over the pattern's repeats (no scan, no
-remat). Parameters are ``{"embed", "final_norm", ["lm_head"], "layers"}``
-with ``layers[i][r]`` the parameter dict of pattern entry ``i`` in repeat
-``r``; :func:`params_from_jax` carries the reference's parameters
+The layers run as a Python loop over the pattern's repeats (no scan).
+Parameters are ``{"embed", "final_norm", ["lm_head"], "layers",
+["shared"]}`` with ``layers[i][r]`` the parameter dict of pattern entry
+``i`` in repeat ``r``; ``shared`` is zamba2's one ``{"attn", "mlp"}``
+set, used by every ``shared_attn`` entry (its gradient sums over the
+uses). :func:`params_from_jax` carries the reference's parameters
 (either of its layouts) into it. The decode cache is the reference's:
-one ``{"k", "v"}`` per pattern entry, each (repeats, B, S, Hkv, hd).
+per pattern entry ``{"k", "v"}`` of (repeats, B, S, Hkv, hd), or
+Mamba2's ``{"conv", "ssm"}`` of (repeats, B, d_conv - 1, conv_dim) and
+(repeats, B, heads, head_dim, d_state).
+
+With ``cfg.remat`` and gradients on, :func:`forward` runs each repeat's
+group under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` over ``group_fn``): its activations are recomputed in
+the backward, so each attention layer runs twice a step. The
+reference's ``remat_policy="dots"`` (keep the products' outputs) saves
+memory traffic, not results; it is treated as ``"full"`` here.
 
 ``backend`` selects the attention of the full-sequence paths
 (``forward``, ``prefill``): ``"cuda"`` the flash kernel, ``"eager"`` the
 plain version; ``None``/``"auto"`` resolves by the tokens' device.
+Cross-attention and encoders are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +33,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import rng as rng_lib
 from repro_torch.models.transformer import layers as L
@@ -25,24 +41,29 @@ from repro_torch.models.transformer.config import TransformerConfig
 from repro_torch.ops.backend import resolve_backend
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
+KINDS = ATTN_KINDS + ("mamba", "shared_attn")
 
 
 def _check_ported(cfg: TransformerConfig) -> None:
-    for i, kind in enumerate(cfg.layer_pattern):
-        if kind not in ATTN_KINDS:
+    for kind in cfg.layer_pattern:
+        if kind not in KINDS:
             raise L.not_ported(f"the {kind!r} block of {cfg.name}")
-        if cfg.mixer_for(i) not in ("mlp", "none"):
-            raise L.not_ported(f"the {cfg.mixer_for(i)!r} mixer of "
-                               f"{cfg.name}")
     if cfg.encoder is not None or cfg.is_encoder:
         raise L.not_ported(f"the encoder of {cfg.name}")
 
 
 def _entry_init(key, cfg: TransformerConfig, kind: str, mixer: str, device):
-    p: Dict[str, Any] = {
-        "mix": L.attn_init(rng_lib.fold_in(key, 1), cfg, device=device)}
+    p: Dict[str, Any] = {}
+    if kind == "mamba":
+        p["mix"] = L.mamba_init(key, cfg, device=device)
+    elif kind == "shared_attn":
+        p["mix"] = {}  # parameters live unstacked in params["shared"]
+    else:
+        p["mix"] = L.attn_init(rng_lib.fold_in(key, 1), cfg, device=device)
     if mixer == "mlp":
         p["ffn"] = L.mlp_init(rng_lib.fold_in(key, 2), cfg, device=device)
+    elif mixer == "moe":
+        p["ffn"] = L.moe_init(rng_lib.fold_in(key, 2), cfg, device=device)
     return p
 
 
@@ -51,7 +72,8 @@ def init_params(key, cfg: TransformerConfig, device="cpu") -> Dict[str, Any]:
     key schedule: per pattern entry ``ek = fold_in(keys[2], i)``, repeat
     ``r`` drawn from ``split(ek, repeats)[r]`` when ``cfg.scan_layers``
     (the reference vmaps over those keys) and from ``fold_in(ek, r)``
-    otherwise. Every draw is bit for bit the reference's."""
+    otherwise; zamba2's shared attention from ``keys[3]`` and its MLP
+    from ``keys[4]``. Every draw is bit for bit the reference's."""
     _check_ported(cfg)
     dt = L._dtype(cfg)
     keys = rng_lib.split(key, 8)
@@ -70,6 +92,10 @@ def init_params(key, cfg: TransformerConfig, device="cpu") -> Dict[str, Any]:
         entries.append([_entry_init(k, cfg, kind, cfg.mixer_for(i), device)
                         for k in rkeys])
     params["layers"] = entries
+    if cfg.has_block("shared_attn"):
+        params["shared"] = {
+            "attn": L.attn_init(keys[3], cfg, device=device),
+            "mlp": L.mlp_init(keys[4], cfg, device=device)}
     return params
 
 
@@ -101,9 +127,38 @@ def _layers(params, cfg: TransformerConfig):
             yield r, i, kind, params["layers"][i][r]
 
 
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_needs_grad(v) for v in tree)
+    return tree.requires_grad
+
+
 # ---------------------------------------------------------------------------
 # forward (training / full-sequence)
 # ---------------------------------------------------------------------------
+
+def _mixer(p, x, cfg: TransformerConfig, mixer: str):
+    if mixer == "mlp":
+        return L.mlp_apply(p["ffn"], x, cfg)
+    if mixer == "moe":
+        return L.moe_apply(p["ffn"], x, cfg)
+    return x
+
+
+def _apply_entry(p, x, cfg: TransformerConfig, kind, mixer, shared,
+                 backend):
+    if kind == "mamba":
+        x, _ = L.mamba_apply(p["mix"], x, cfg)
+    elif kind == "shared_attn":
+        x = L.attn_apply(shared["attn"], x, cfg, kind="attn",
+                         backend=backend)
+        x = L.mlp_apply(shared["mlp"], x, cfg)
+    else:
+        x = L.attn_apply(p["mix"], x, cfg, kind=kind, backend=backend)
+    return _mixer(p, x, cfg, mixer)
+
 
 def embed_tokens(params, tokens, cfg: TransformerConfig):
     x = params["embed"][tokens]
@@ -130,72 +185,113 @@ def forward(params, tokens, cfg: TransformerConfig,
     """tokens: integer (B, S) -> logits (B, S, V)."""
     _check_ported(cfg)
     backend = resolve_backend(backend, tokens.device)
+    shared = params.get("shared")
     x = embed_tokens(params, tokens, cfg)
-    for _, i, kind, p in _layers(params, cfg):
-        x = L.attn_apply(p["mix"], x, cfg, kind=kind, backend=backend)
-        if cfg.mixer_for(i) == "mlp":
-            x = L.mlp_apply(p["ffn"], x, cfg)
+
+    def group_fn(x, r):
+        for i, kind in enumerate(cfg.layer_pattern):
+            x = _apply_entry(params["layers"][i][r], x, cfg, kind,
+                             cfg.mixer_for(i), shared, backend)
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled() and _needs_grad(params)
+    for r in range(cfg.repeats):
+        if remat:
+            x = checkpoint(group_fn, x, r, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = group_fn(x, r)
     return logits_head(params, x, cfg)
 
 
 # ---------------------------------------------------------------------------
-# kv caches, prefill & decode
+# kv / state caches, prefill & decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
                device="cpu") -> List[Dict[str, torch.Tensor]]:
-    """Zero K/V caches, one {"k", "v"} of (repeats, B, max_seq, Hkv, hd)
-    per pattern entry."""
+    """Zero caches, one per pattern entry, stacked over repeats: K/V
+    ``{"k", "v"}`` of (repeats, B, max_seq, Hkv, hd), or Mamba2's
+    ``{"conv", "ssm"}`` states."""
     _check_ported(cfg)
     dt = L._dtype(cfg)
-    shape = (cfg.repeats, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
-            for _ in cfg.layer_pattern]
+    out = []
+    for kind in cfg.layer_pattern:
+        if kind == "mamba":
+            one = L.mamba_cache_spec(cfg, batch, device="meta")
+            out.append({n: torch.zeros((cfg.repeats,) + tuple(t.shape),
+                                       dtype=t.dtype, device=device)
+                        for n, t in one.items()})
+        else:
+            shape = (cfg.repeats, batch, max_seq, cfg.n_kv_heads,
+                     cfg.head_dim)
+            out.append({"k": torch.zeros(shape, dtype=dt, device=device),
+                        "v": torch.zeros(shape, dtype=dt, device=device)})
+    return out
 
 
 def widen_cache(cache, extra: int):
-    """The cache with ``extra`` zero positions appended (room for the
-    tokens to generate); each entry's old tensors are freed as it goes."""
+    """The cache with ``extra`` zero positions appended to every K/V
+    (room for the tokens to generate); the Mamba2 states have no
+    sequence axis and stay as they are. Each entry's old tensors are
+    freed as it goes."""
     out = []
     for entry in cache:
-        out.append({n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, extra))
+        out.append({n: (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, extra))
+                        if n in ("k", "v") else t)
                     for n, t in entry.items()})
         entry.clear()
     return out
 
 
+def _prefill_attention(mix, x, cfg: TransformerConfig, *, window, positions,
+                       backend, post_norm: bool):
+    """One self-attention block of the prefill: (x + attention, k, v)."""
+    B, S, _ = x.shape
+    h = L.norm_apply(mix["pre_norm"], x, cfg)
+    q, k, v = L._qkv(mix, h, h, cfg)
+    q = L.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = L.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    out = L.self_attention(q, k, v, cfg, causal=True, window=window,
+                           backend=backend)
+    del q, h
+    out = out.reshape(B, S, cfg.q_dim) @ mix["wo"]
+    if post_norm:
+        out = L.norm_apply(mix["post_norm"], out, cfg)
+    return x + out, k, v
+
+
 def prefill(params, tokens, cfg: TransformerConfig,
             backend: Optional[str] = None):
     """Full-sequence forward that also fills the decode caches. Returns
-    (last_logits (B, V), cache). On ``cuda`` every layer's attention is
-    one launch of the flash kernel."""
+    (last_logits (B, V), cache). On ``cuda`` every attention layer, the
+    shared one's uses included, is one launch of the flash kernel."""
     _check_ported(cfg)
     backend = resolve_backend(backend, tokens.device)
     B, S = tokens.shape
+    shared = params.get("shared")
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(S, device=tokens.device)[None]
     cache = init_cache(cfg, B, S, device=tokens.device)
     for r, i, kind, p in _layers(params, cfg):
-        mix = p["mix"]
-        h = L.norm_apply(mix["pre_norm"], x, cfg)
-        q, k, v = L._qkv(mix, h, h, cfg)
-        q = L.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-        k = L.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-        window = cfg.window if kind == "attn_local" else None
-        out = L.self_attention(q, k, v, cfg, causal=True, window=window,
-                               backend=backend)
-        del q, h
-        out = out.reshape(B, S, cfg.q_dim) @ mix["wo"]
-        if cfg.post_norms:
-            out = L.norm_apply(mix["post_norm"], out, cfg)
-        x = x + out
-        del out
-        cache[i]["k"][r] = k
-        cache[i]["v"][r] = v
-        del k, v
-        if cfg.mixer_for(i) == "mlp":
-            x = L.mlp_apply(p["ffn"], x, cfg)
+        c = cache[i]
+        if kind == "mamba":
+            x, (conv, ssm) = L.mamba_apply(p["mix"], x, cfg)
+            if conv is not None:
+                c["conv"][r] = conv
+            c["ssm"][r] = ssm
+        elif kind == "shared_attn":
+            # the reference's prefill: no post-norm on the shared block
+            x, c["k"][r], c["v"][r] = _prefill_attention(
+                shared["attn"], x, cfg, window=None, positions=positions,
+                backend=backend, post_norm=False)
+            x = L.mlp_apply(shared["mlp"], x, cfg)
+        else:
+            window = cfg.window if kind == "attn_local" else None
+            x, c["k"][r], c["v"][r] = _prefill_attention(
+                p["mix"], x, cfg, window=window, positions=positions,
+                backend=backend, post_norm=cfg.post_norms)
+        x = _mixer(p, x, cfg, cfg.mixer_for(i))
     logits = logits_head(params, x[:, -1:], cfg)
     return logits[:, 0], cache
 
@@ -205,11 +301,21 @@ def decode_step(params, tokens, cache, pos: int, cfg: TransformerConfig):
     to cache[<= pos]). Updates ``cache`` in place and returns
     (logits (B, V), cache)."""
     _check_ported(cfg)
+    shared = params.get("shared")
     x = embed_tokens(params, tokens, cfg)
     for r, i, kind, p in _layers(params, cfg):
         entry = {n: t[r] for n, t in cache[i].items()}
-        x, _ = L.attn_decode(p["mix"], x, entry, pos, cfg, kind=kind)
-        if cfg.mixer_for(i) == "mlp":
-            x = L.mlp_apply(p["ffn"], x, cfg)
+        if kind == "mamba":
+            x, (conv, ssm) = L.mamba_apply(
+                p["mix"], x, cfg, conv_state=entry["conv"],
+                ssm_state=entry["ssm"], decode=True)
+            entry["conv"].copy_(conv)
+            entry["ssm"].copy_(ssm)
+        elif kind == "shared_attn":
+            x, _ = L.attn_decode(shared["attn"], x, entry, pos, cfg)
+            x = L.mlp_apply(shared["mlp"], x, cfg)
+        else:
+            x, _ = L.attn_decode(p["mix"], x, entry, pos, cfg, kind=kind)
+        x = _mixer(p, x, cfg, cfg.mixer_for(i))
     logits = logits_head(params, x, cfg)
     return logits[:, 0], cache

@@ -115,8 +115,20 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:010d}")
 
 
+def _armed(ckpt_dir: str, inject: Any) -> Tuple[Any, bool]:
+    """The checkpoint faults that fire on the next write: the
+    ``torn_ckpt`` spec (or None) and whether ``ckpt_error`` fires. It runs
+    on the training thread, so the plan's log keeps the order of the
+    loop's own faults whichever thread writes the checkpoint."""
+    if inject is None:
+        return None, False
+    torn = inject.fires("torn_ckpt", _save_ordinal(ckpt_dir))
+    error = inject.fires("ckpt_error", _save_ordinal(ckpt_dir)) is not None
+    return torn, error
+
+
 def _write(ckpt_dir: str, step: int, arrays: Dict[str, np.ndarray],
-           meta: Optional[dict], keep: int, inject: Any) -> str:
+           meta: Optional[dict], keep: int, torn: Any, error: bool) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
     tmp = final + ".tmp"
@@ -130,15 +142,13 @@ def _write(ckpt_dir: str, step: int, arrays: Dict[str, np.ndarray],
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump({"step": step, "time": time.time(),
                    "integrity": integrity, **(meta or {})}, f)
-    if inject is not None:
-        spec = inject.fires("torn_ckpt", _save_ordinal(ckpt_dir))
-        if spec is not None:
-            size = os.path.getsize(npz_path)
-            with open(npz_path, "r+b") as f:
-                f.truncate(max(1, int(size * spec.effect)))
-        if inject.fires("ckpt_error", _save_ordinal(ckpt_dir)) is not None:
-            shutil.rmtree(tmp, ignore_errors=True)
-            raise OSError(f"injected checkpoint write failure at step {step}")
+    if torn is not None:
+        size = os.path.getsize(npz_path)
+        with open(npz_path, "r+b") as f:
+            f.truncate(max(1, int(size * torn.effect)))
+    if error:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise OSError(f"injected checkpoint write failure at step {step}")
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic publish
@@ -153,7 +163,8 @@ def save(ckpt_dir: str, step: int, tree: Any, meta: Optional[dict] = None,
     (truncate ``arrays.npz`` between write and publish) and
     ``ckpt_error`` (raise OSError before publish), both indexed by the
     count of published steps."""
-    return _write(ckpt_dir, step, _flatten(tree), meta, keep, inject)
+    return _write(ckpt_dir, step, _flatten(tree), meta, keep,
+                  *_armed(ckpt_dir, inject))
 
 
 def _save_ordinal(ckpt_dir: str) -> int:
@@ -255,17 +266,18 @@ class AsyncSaver:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def _run(self, step, arrays, meta):
+    def _run(self, step, arrays, meta, faults):
         try:
-            _write(self.ckpt_dir, step, arrays, meta, self.keep, self.inject)
+            _write(self.ckpt_dir, step, arrays, meta, self.keep, *faults)
         except BaseException as e:  # raised again on the training thread
             self._error = e
 
     def save(self, step: int, tree: Any, meta: Optional[dict] = None):
         self.wait()
         arrays = _flatten(tree)  # the snapshot, before any later step
+        faults = _armed(self.ckpt_dir, self.inject)
         self._thread = threading.Thread(
-            target=self._run, args=(step, arrays, meta), daemon=True)
+            target=self._run, args=(step, arrays, meta, faults), daemon=True)
         self._thread.start()
 
     def wait(self):

@@ -1918,3 +1918,127 @@ def test_async_saver_snapshot_of_card_tensors(cuda_device, tmp_path):
         assert got[k].device.type == "cuda" and torch.equal(got[k], v), k
     assert not torch.equal(got["params.layers.0.w"],
                            dict(model.named_parameters())["layers.0.w"])
+
+
+# -- LM training and the new LM blocks on the card ---------------------------
+
+#: (B, S, Hq, Hkv, hd): zamba2's shared attention (MHA, 32 heads of 80)
+#: and qwen3-moe's (GQA 64/4, a ratio of 16, at 128)
+LM_FLASH_SHAPES = [(1, 300, 32, 32, 80), (1, 300, 64, 4, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LM_FLASH_SHAPES,
+                         ids=["mha32x80", "gqa16x128"])
+def test_flash_backward_at_the_new_lm_shapes(cuda_device, shape):
+    """B9's autograd Function at the head shapes of zamba2 and qwen3-moe:
+    the kernel's forward within 2e-5 x max|v| of the plain version, and
+    its backward (the plain version's autograd) equal to differentiating
+    the plain version."""
+    B, S, Hq, Hkv, hd = shape
+    case = (B, S, S, Hq, Hkv, hd, True, None, None, None, torch.float32)
+    q, k, v = _flash_inputs(case, cuda_device)
+    g = torch.randn_like(q)
+    outs, grads = [], []
+    fa.reset_launches()
+    for fn in (lambda a, b, c: fa.flash_attention(a, b, c, True),
+               lambda a, b, c: fr_attn.attention_ref(a, b, c)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(g)
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                               atol=2e-5 * max(1.0, v.abs().max().item()))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", [("gemma2-2b", 4),
+                                         ("zamba2-2.7b", 12),
+                                         ("qwen3-moe-235b-a22b", 2)])
+def test_lm_train_step_cuda_matches_eager(cuda_device, arch, layers):
+    """Two reduced train steps with remat on, on the ``cuda`` backend
+    (B9 in the forward and in each recompute: two launches per attention
+    layer a step; zamba2's shared block counts once per use) against
+    the ``eager`` backend on the card from the same parameters: the
+    losses within 1e-5 relative, every parameter within 1e-3 relative
+    L2."""
+    from repro_torch import configs
+    from repro_torch.configs.reduce import reduce_cfg
+    from repro_torch.data.tokens import BigramStream
+    from repro_torch.models.transformer import lm, stack
+    cfg = dataclasses.replace(reduce_cfg(configs.get_config(arch)),
+                              num_layers=layers, remat=True)
+    n_attn = sum(k != "mamba" for k in cfg.layer_pattern) * cfg.repeats
+    opt_cfg = adam.AdamConfig(lr=1e-3)
+    runs = []
+    for backend in ("cuda", "eager"):
+        params = stack.init_params(TR.key(0), cfg, device="cuda")
+        opt = lm.init_opt_state(params, opt_cfg)
+        step = lm.make_train_step(cfg, opt_cfg, backend=backend)
+        stream = BigramStream(cfg.vocab, seed=1)
+        losses = []
+        for _ in range(2):
+            toks, labels = stream.batch(2, 96, device="cuda")
+            fa.reset_launches()
+            params, opt, m = step(params, opt, {"tokens": toks,
+                                                "labels": labels})
+            losses.append(m["loss"].item())
+            assert fa.LAUNCHES["flash_attention"] == (
+                2 * n_attn if backend == "cuda" else 0)
+        runs.append((losses, lm.flatten_params(params)))
+    (lk, pk), (le, pe) = runs
+    torch.testing.assert_close(torch.tensor(lk), torch.tensor(le),
+                               rtol=1e-5, atol=0)
+    for name, t in pk.items():
+        rel = ((t.double() - pe[name].double()).norm()
+               / pe[name].double().norm().clamp(min=1e-30)).item()
+        assert rel <= 1e-3, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", [("gemma2-2b", 4),
+                                         ("zamba2-2.7b", 12)])
+def test_lm_train_step_remat_matches_no_remat(cuda_device, arch, layers):
+    """Two reduced train steps on the ``cuda`` backend with remat on
+    (``torch.utils.checkpoint`` per repeat group; zamba2's shared set
+    reached through the group's closure) against remat off, from the same
+    parameters on the same batches: the losses within 1e-6 relative,
+    every parameter within 1e-4 relative L2; B9 launches twice per
+    attention layer a step with remat, once without."""
+    from repro_torch import configs
+    from repro_torch.configs.reduce import reduce_cfg
+    from repro_torch.data.tokens import BigramStream
+    from repro_torch.models.transformer import lm, stack
+    base = dataclasses.replace(reduce_cfg(configs.get_config(arch)),
+                               num_layers=layers)
+    n_attn = sum(k != "mamba" for k in base.layer_pattern) * base.repeats
+    opt_cfg = adam.AdamConfig(lr=1e-3)
+    runs = []
+    for remat in (True, False):
+        cfg = dataclasses.replace(base, remat=remat)
+        params = stack.init_params(TR.key(0), cfg, device="cuda")
+        opt = lm.init_opt_state(params, opt_cfg)
+        step = lm.make_train_step(cfg, opt_cfg, backend="cuda")
+        stream = BigramStream(cfg.vocab, seed=1)
+        losses = []
+        for _ in range(2):
+            toks, labels = stream.batch(2, 96, device="cuda")
+            fa.reset_launches()
+            params, opt, m = step(params, opt, {"tokens": toks,
+                                                "labels": labels})
+            losses.append(m["loss"].item())
+            assert fa.LAUNCHES["flash_attention"] == (
+                2 * n_attn if remat else n_attn)
+        runs.append((losses, lm.flatten_params(params)))
+    (lr_, pr), (ln, pn) = runs
+    torch.testing.assert_close(torch.tensor(lr_), torch.tensor(ln),
+                               rtol=1e-6, atol=0)
+    for name, t in pr.items():
+        rel = ((t.double() - pn[name].double()).norm()
+               / pn[name].double().norm().clamp(min=1e-30)).item()
+        assert rel <= 1e-4, name

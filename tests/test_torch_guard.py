@@ -297,6 +297,27 @@ def test_rollback_bit_exact(dsets, clean, case):
     _params_equal(out, ref)
 
 
+def test_torn_checkpoint_logs_in_loop_order_with_a_slow_writer(
+        dsets, monkeypatch):
+    """The torn write of step 8 is logged before step 9's fault even when
+    the save thread is still writing while step 9 runs: the checkpoint
+    faults are decided on the training thread."""
+    from repro_torch.runtime import checkpoint as ckpt_lib
+    write = ckpt_lib._write
+
+    def slow_write(*args):
+        threading.Event().wait(0.5)
+        return write(*args)
+
+    monkeypatch.setattr(ckpt_lib, "_write", slow_write)
+    with tempfile.TemporaryDirectory() as d:
+        out = _port(dsets[1], steps=12, guard="rollback", guard_warmup=2,
+                    ckpt_dir=d, ckpt_every=4,
+                    inject="torn_ckpt@1,corrupt_feats@9=1e8")
+    assert out["inject_log"] == [("torn_ckpt", 1), ("corrupt_feats", 9)]
+    assert out["guard_stats"].rollbacks == 1
+
+
 def test_rollback_budget_exhaustion_raises_guardfault(dsets):
     with pytest.raises(GuardFault, match="rollback budget exhausted"):
         _port(dsets[1], guard="rollback", guard_max_rollbacks=1,

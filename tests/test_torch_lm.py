@@ -252,10 +252,19 @@ def test_masks_and_cache_specs_match_repro():
 
 
 def test_unported_blocks_say_so():
-    for arch in ("mamba2-370m", "qwen3-moe-235b-a22b", "zamba2-2.7b"):
-        cfg = treduce(tconfigs.get_config(arch, dtype="float32"))
+    """Cross-attention and encoders are what the port still refuses (no
+    registered arch has either); every registered arch's blocks run
+    (``test_torch_mamba.py``, ``test_torch_moe.py``)."""
+    base = treduce(tconfigs.get_config("gemma2-2b", dtype="float32"))
+    for cfg in (dataclasses.replace(base, layer_pattern=("attn", "xattn"),
+                                    xattn_source_len=24),
+                dataclasses.replace(base, encoder=base),
+                dataclasses.replace(base, is_encoder=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TS.init_params(TR.key(0), cfg)
+    for arch in tconfigs.ARCHS:
+        cfg = treduce(tconfigs.get_config(arch, dtype="float32"))
+        TS.init_cache(cfg, 1, 4)
     with pytest.raises(ValueError, match="cuda"):
         _, tcfg = _cfgs("stablelm-1.6b")
         TS.forward({}, torch.zeros(1, 4, dtype=torch.int64), tcfg,

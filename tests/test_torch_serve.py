@@ -276,16 +276,25 @@ def test_cuda_is_the_default_device(samplers_):
 
 def test_unported_paths_say_so():
     """What the port still refuses says so: an unknown sampler name, and
-    the LM blocks that are not ported (weighted graphs and the async
-    driver are ported: tests/test_torch_weighted.py and
-    tests/test_torch_serving_driver.py)."""
+    the LM blocks that are not ported, cross-attention (weighted graphs,
+    the async driver and every registered LM arch are ported:
+    tests/test_torch_weighted.py, tests/test_torch_serving_driver.py,
+    tests/test_torch_mamba.py and tests/test_torch_moe.py)."""
+    import dataclasses
     from repro_torch.launch import serve as tserve
     with pytest.raises(TS.UnknownSamplerError):
         TS.resolve("labor-one")
-    # the LM workload serves the dense archs; the others' blocks say so
+    # the LM workload serves every registered arch; a cross-attention
+    # block says so
+    args = tserve.parser().parse_args(
+        SERVE_ARGS + ["--device", "cpu", "--workload", "lm", "--arch",
+                      "mamba2-370m", "--reduce", "--prompt-len", "8",
+                      "--gen", "2"])
+    cfg, params, prompts = tserve.build_lm(args)
+    xattn = dataclasses.replace(cfg, layer_pattern=("xattn",),
+                                num_layers=1)
     with pytest.raises(NotImplementedError, match="not ported"):
-        tserve.main(SERVE_ARGS + ["--device", "cpu", "--workload", "lm",
-                                  "--arch", "mamba2-370m", "--reduce"])
+        tserve.serve_lm(args, (xattn, params, prompts))
 
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")

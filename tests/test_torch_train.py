@@ -249,8 +249,10 @@ def test_cuda_is_the_default_and_unported_options_raise():
             cfg.inject) == ("rollback", "full", "ck", False, "nan_grad@3")
     with pytest.raises(ValueError, match="unknown model"):
         ttrain.GNNTrainConfig(model="gin")
-    with pytest.raises(SystemExit, match="not ported"):
-        tlaunch.main(["--workload", "lm", "--device", "cpu"])
+    # the LM workload is ported; an arch outside the registry says so
+    with pytest.raises(KeyError, match="unknown arch"):
+        tlaunch.main(["--workload", "lm", "--device", "cpu", "--arch",
+                      "whisper-tiny"])
 
 
 def test_port_modules_load_neither_jax_nor_repro():
