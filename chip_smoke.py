@@ -2,7 +2,8 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
   python3 chip_smoke.py [--scale 0.25] [--requests 8] [--steps 8] [--reps 20]
-                        [--kernels-only | --lm-only] [--parent-src DIR/src]
+                        [--kernels-only | --lm-only | --mesh-only]
+                        [--parent-src DIR/src]
   python3 chip_smoke.py --window-only [--src DIR/src]
 
 Phases, each printing JSON lines; any mismatch, build failure or launch
@@ -135,6 +136,29 @@ error exits non-zero:
      idle share) and 5 timed by the host clock (steps/s); with
      ``--parent-src`` also the ``off`` window of that tree (a child
      process of ``--window-only``, which builds that tree's kernels);
+  4c. the multi-device engine (``train mesh``): the labor-gcn
+     configuration (``configs/labor_gcn.py``: features 100, hidden 256,
+     47 classes, 3 layers, fanouts 10,10,10, LABOR-0, cap safety 1.6,
+     global batch 32,768) on the same products graph, its one cut (scale
+     0.25: 612,257 vertices instead of 2,449,029; generating scale 1.0
+     takes a minute of host time). ``MESH_STEPS`` steps of the launcher's
+     batches, each followed by a flush, through
+     ``launch/gnn_step.build_gnn_engine``: the single-device engine on
+     the card first, then world size 1 (an NCCL group of this process;
+     counted path ``train mesh``; step 0's sampling half, the routing
+     included, recomputed on the plain path, bit for bit), then world
+     size 2 (two spawned ranks on this card in a gloo group over CUDA
+     tensors, which read the graph this process saved instead of
+     generating it; counted path ``train mesh 2 ranks``, the counts
+     summed over the ranks). Each mesh run is held to the single-device
+     one: every layer's frontier set bit for bit, ``sampled_v`` and
+     ``sampled_e`` equal, loss within 1e-4, accuracy within 1e-6, the
+     final parameters within 2e-5; compact, hash_dedup, compact_perm and
+     the SpMM both ways launched. Printed: the warm step's seconds, the
+     feature all-to-all's live rows and bytes and its padded bytes a
+     step, |V^3| beside the single-device one, the collectives staged
+     through pinned host memory, the card. ``--mesh-only`` runs phase 1
+     and this phase alone (no ``kernels`` or ``ok`` line);
   5. where the serving time goes: one warm request split into sample /
      gather / forward with CUDA events; then torch.profiler over a
      window of warm requests, as for training;
@@ -161,10 +185,12 @@ error exits non-zero:
      and one prefill under the profiler (B9's share of the device time,
      idle shares);
   7. LM training through ``repro_torch.launch.train``'s ``--workload lm``
-     path (``train_lm``) at full width and depth, remat on, Adam lr 1e-3
-     on the reference's bigram stream: gemma2-2b (phase 6's weights,
-     batch 1 x 2,048 tokens, 4 steps) and mamba2-370m (4 x 2,048, 4
-     steps). Step 0 recomputed on the kernel and the plain path from the
+     path (``train_lm``), remat on, Adam lr 1e-3
+     on the reference's bigram stream, at full width and cut depth
+     (``LM_TRAIN_PATHS``, listed in each path's line): gemma2-2b (phase
+     6's weights cut to 4 of its 26 layers, batch 1 x 2,048 tokens, 4
+     steps) and mamba2-370m (8 of its 48 layers, 4 x 2,048, 4 steps).
+     Step 0 recomputed on the kernel and the plain path from the
      same weights (losses within 1e-5 relative; every gradient and every
      parameter after the step's update within 1e-3 relative L2 per
      tensor) and against fp64 at ``TRAIN_FP64_SEQ`` tokens with remat
@@ -173,7 +199,7 @@ error exits non-zero:
      microbatches against 1 on the same batch (loss within 1e-5,
      gradients within 1e-4). Counts zeroed before the run, read after:
      B9 launches twice per attention layer a step (the forward and the
-     remat recompute: 26 x 2 for gemma2-2b, none for mamba2-370m); the
+     remat recompute: 4 x 2 for gemma2-2b, none for mamba2-370m); the
      losses finite, the last below the first; one more step and one
      no-gradient forward under the profiler (busy ms, operations, idle
      share, B9's share);
@@ -191,9 +217,10 @@ The line before the last is the ``kernels`` JSON object: per kernel,
 full, serve gatv2, weighted <sampler> for each weighted sampler, serve
 async, train <sampler> for each sampler, train sage, train gatv2, the
 weight-gradient path, train guarded, train prefetch, train full, serve
-checkpoint, serve lm gemma2-2b, serve lm stablelm-1.6b, train lm
-gemma2-2b, train lm mamba2-370m, serve lm mamba2-370m, serve lm
-zamba2-2.7b, serve lm qwen3-moe-235b-a22b) and ``launches`` their sum.
+checkpoint, train mesh, train mesh 2 ranks, serve lm gemma2-2b, serve
+lm stablelm-1.6b, train lm gemma2-2b, train lm mamba2-370m, serve lm
+mamba2-370m, serve lm zamba2-2.7b, serve lm qwen3-moe-235b-a22b) and
+``launches`` their sum.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits 1 and prints no result.
 """
@@ -1974,6 +2001,307 @@ def parent_window(opts):
     return json.loads(lines[-1])
 
 
+# ---------------------------------------------------------------------------
+# the multi-device engine (phase "train mesh")
+# ---------------------------------------------------------------------------
+
+#: steps of each mesh run (each followed by a flush)
+MESH_STEPS = 3
+#: the kernels each mesh path must launch: the partition-local
+#: build_block's, the route's dedup, and the GCN's SpMM both ways
+MESH_KERNELS = ("compact", "hash_dedup", "compact_perm", "spmm", "spmm_t")
+
+
+def mesh_workload(ds):
+    """The labor-gcn configuration (``configs/labor_gcn.py``: features
+    100, hidden 256, 47 classes, 3 layers, fanouts 10,10,10, LABOR-0,
+    cap safety 1.6, global batch 32,768) on this graph's statistics."""
+    from repro_torch.configs.labor_gcn import GNNWorkloadConfig
+    g = ds.graph
+    return GNNWorkloadConfig(num_vertices=g.num_vertices,
+                             avg_degree=g.num_edges / g.num_vertices)
+
+
+def mesh_batches(ds, cfg, seed):
+    """The launcher's schedule at the global batch, on the host: seeds
+    ``SeedBatches.at(t)`` (numpy), keys ``fold_in(key(seed + 1), t)``."""
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.data.gnn_loader import SeedBatches
+    sb = SeedBatches(ds.train_idx, cfg.global_batch, seed=seed)
+    return [(sb.at(t).numpy(), rng_lib.fold_in(rng_lib.key(seed + 1), t))
+            for t in range(MESH_STEPS)]
+
+
+def sync(device):
+    """Waits for ``device``'s queue (a no-op for the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _frontier_sets(frontiers):
+    return [torch.unique(f[f >= 0]).cpu() for f in frontiers]
+
+
+def _warm_step(engine, model, state, data, seeds, key):
+    """One more step and its flush (for a profile window)."""
+    model, state, _ = engine.step(model, state, data, seeds, key)
+    engine.flush(model, state, data)
+
+
+def mesh_drive(mesh, ds, batches, seed, check_plain=False, profile=False):
+    """``build_gnn_engine`` on ``mesh`` over ``batches``, each step
+    followed by a flush (an overflowed batch is replayed before the next
+    one, so the order of updates is the single-device run's whatever
+    either run's caps do). Counts are zeroed before the steps and read
+    after, summed over the ranks. ``check_plain``: step 0's sampling
+    half (routing included) recomputed on the plain path on the card,
+    blocks and frontiers bit for bit. ``profile``: one more step under
+    torch.profiler, after the counts are read. Returns each step's
+    metrics (the frontier sets on the host), the final parameters, the
+    counts and the engine's metadata."""
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.launch.gnn_step import build_gnn_engine
+    from repro_torch.models import gnn as gnn_models
+    from repro_torch.runtime.engine import TrainEngine
+
+    t_set = time.perf_counter()
+    cfg = mesh_workload(ds)
+    engine, meta = build_gnn_engine(mesh, cfg)
+    model = gnn_models.gcn_init(rng_lib.key(seed), cfg.feature_dim,
+                                cfg.hidden, cfg.num_classes, cfg.num_layers,
+                                device=mesh.device)
+    data = engine.make_data_from_dataset(ds)
+    state = engine.init_state(model)
+    batches = [(torch.as_tensor(s, device=mesh.device), k)
+               for s, k in batches]
+    if check_plain:
+        seeds, key = batches[0]
+        plain = TrainEngine(engine.sampler, mesh=mesh, backend="eager")
+        bk = engine.sample_stage(data.graph, seeds, key)
+        be = plain.sample_stage(data.graph, seeds, key)
+        sync(mesh.device)
+        compare_blocks(bk.blocks, be.blocks, "train mesh step 0")
+        for a, b in zip(bk.frontiers, be.frontiers):
+            same("train mesh step 0 frontier", a, b)
+        del plain, bk, be
+    sync(mesh.device)
+    setup_s = time.perf_counter() - t_set
+    reset_launches()
+    steps = []
+    for t, (seeds, key) in enumerate(batches):
+        t0 = time.perf_counter()
+        model, state, m = engine.step(model, state, data, seeds, key, tag=t)
+        model, state, rm = engine.flush(model, state, data)
+        sync(mesh.device)
+        dt = time.perf_counter() - t0
+        m = rm if rm is not None else m
+        steps.append(dict(
+            seconds=dt, loss=float(m["loss"]), acc=float(m["acc"]),
+            sampled_v=int(m["sampled_v"]), sampled_e=int(m["sampled_e"]),
+            feat_rows=int(m["feat_rows"]),
+            overflow=bool(m["overflow"].any()),
+            frontiers=_frontier_sets(m["frontiers"])))
+    counts = launch_counts()
+    names = sorted(counts)
+    summed = mesh.psum(torch.tensor([counts[n] for n in names],
+                                    dtype=torch.int64, device=mesh.device))
+    params = [p.detach().cpu() for p in model.parameters()]
+    window = (profile_window(lambda i: _warm_step(engine, model, state, data,
+                                                  *batches[0]), 1)
+              if profile else None)
+    return dict(steps=steps, meta=meta, setup_seconds=setup_s,
+                profile=window,
+                staged=sorted(mesh.staged), backend=mesh.backend,
+                ranks=mesh.size, replays=engine.stats.overflow_replays,
+                retries=engine.stats.overflow_retries,
+                caps=[c.__dict__ for c in engine.sampler.caps],
+                peer_caps=list(engine.sampler.spec.peer_caps),
+                params=params, launches=dict(zip(names, summed.tolist())))
+
+
+def _mesh_rank(mesh, path, batches, seed):
+    """One rank of the two-rank run: the graph from ``path`` (saved by
+    :func:`phase_mesh`, not generated again), then :func:`mesh_drive`."""
+    from repro_torch.graph.csr import Graph
+    from repro_torch.graph.generators import GraphDataset
+    torch.backends.cuda.matmul.allow_tf32 = False
+    z = {k: np.load(os.path.join(path, k + ".npy"))
+         for k in ("indptr", "indices", "features", "labels")}
+    ds = GraphDataset(
+        spec=None, graph=Graph(indptr=torch.from_numpy(z["indptr"]),
+                               indices=torch.from_numpy(z["indices"])),
+        features=z["features"], labels=z["labels"], train_idx=None,
+        val_idx=None, test_idx=None, max_in_degree=0)
+    return mesh_drive(mesh, ds, batches, seed)
+
+
+def mesh_hold(what, got, want, feat_dim):
+    """Holds a mesh run to the single-device run on the card: every
+    layer's frontier set bit for bit, ``sampled_v``/``sampled_e`` equal,
+    loss within 1e-4, accuracy within 1e-6, the final parameters within
+    2e-5 (repro's own tolerances); every path kernel launched. Returns
+    the phase line's numbers."""
+    for t, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        if g["overflow"] or w["overflow"]:
+            fail(f"{what} step {t}: overflow after the replay "
+                 f"(mesh {g['overflow']}, single {w['overflow']})")
+        for l, (a, b) in enumerate(zip(g["frontiers"], w["frontiers"])):
+            if not torch.equal(a, b):
+                fail(f"{what} step {t} layer {l}: frontier sets differ "
+                     f"({a.numel()} vs {b.numel()} vertices)")
+        for k in ("sampled_v", "sampled_e"):
+            if g[k] != w[k]:
+                fail(f"{what} step {t}: {k} {g[k]} vs {w[k]}")
+        if not abs(g["loss"] - w["loss"]) < 1e-4:
+            fail(f"{what} step {t}: loss {g['loss']} vs {w['loss']}")
+        if not abs(g["acc"] - w["acc"]) < 1e-6:
+            fail(f"{what} step {t}: acc {g['acc']} vs {w['acc']}")
+    err = max(float((a - b).abs().max())
+              for a, b in zip(got["params"], want["params"]))
+    if not err < 2e-5:
+        fail(f"{what}: parameters differ by {err} (bound 2e-5)")
+    for k in MESH_KERNELS:
+        if got["launches"].get(k, 0) <= 0:
+            fail(f"kernel {k} was not launched on the path {what}")
+    P = got["ranks"]
+    peer = got["peer_caps"][-1]
+    warm = [s["seconds"] for s in got["steps"][1:]]
+    rows = [s["feat_rows"] for s in got["steps"]]
+    return {
+        "ranks": P, "backend": got["backend"],
+        "staged_through_host": got["staged"],
+        "setup_seconds": got["setup_seconds"],
+        "step_seconds": [s["seconds"] for s in got["steps"]],
+        "warm_step_seconds": sum(warm) / len(warm),
+        "losses": [s["loss"] for s in got["steps"]],
+        "sampled_v": [s["sampled_v"] for s in got["steps"]],
+        "single_device_sampled_v": [s["sampled_v"] for s in want["steps"]],
+        "sampled_e": [s["sampled_e"] for s in got["steps"]],
+        "frontier_sizes": [[int(f.numel()) for f in s["frontiers"]]
+                           for s in got["steps"]],
+        "feature_rows_per_step": rows,
+        # live rows: a 4-byte request and a row of float32 features each
+        "feature_live_bytes_per_step": [
+            r * (4 + 4 * feat_dim) for r in rows],
+        # what the fixed-capacity all-to-all pair moves over all ranks
+        "feature_padded_bytes_per_step": P * P * peer * (4 + 4 * feat_dim),
+        "params_max_abs_err": err, "replays": got["replays"],
+        "retries": got["retries"], "caps": got["caps"],
+        "peer_caps": got["peer_caps"], "launches": got["launches"]}
+
+
+def single_drive(ds, batches, seed):
+    """The single-device engine on the card with the mesh's sampler
+    geometry at the global batch (no per-peer caps), over the same
+    batches, each step followed by a flush; each step's frontier sets
+    from a sampling pass with the same key."""
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.core import samplers as sampler_registry
+    from repro_torch.models import gnn as gnn_models
+    from repro_torch.optim import adam
+
+    cfg = mesh_workload(ds)
+    sampler = sampler_registry.from_graph_stats(
+        cfg.sampler, batch_size=cfg.global_batch, fanouts=cfg.fanouts,
+        avg_degree=cfg.avg_degree,
+        max_degree=int(min(cfg.avg_degree * 64, cfg.num_vertices - 1)),
+        num_vertices=cfg.num_vertices,
+        num_edges=int(cfg.num_vertices * cfg.avg_degree),
+        safety=cfg.cap_safety)
+    from repro_torch.runtime.engine import TrainEngine
+    engine = TrainEngine(sampler, adam.AdamConfig(lr=1e-3), device=DEV)
+    model = gnn_models.gcn_init(rng_lib.key(seed), cfg.feature_dim,
+                                cfg.hidden, cfg.num_classes, cfg.num_layers,
+                                device=DEV)
+    data = engine.make_data_from_dataset(ds)
+    state = engine.init_state(model)
+    steps = []
+    for seeds, key in batches:
+        seeds = torch.as_tensor(seeds, device=DEV)
+        t0 = time.perf_counter()
+        model, state, m = engine.step(model, state, data, seeds, key)
+        model, state, rm = engine.flush(model, state, data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        m = rm if rm is not None else m
+        blocks = engine.sample_stage(data.graph, seeds, key)
+        sets = _frontier_sets([seeds] + [b.next_seeds for b in blocks])
+        steps.append(dict(seconds=dt, loss=float(m["loss"]),
+                          acc=float(m["acc"]),
+                          sampled_v=int(m["sampled_v"]),
+                          sampled_e=int(m["sampled_e"]),
+                          overflow=bool(m["overflow"].any()),
+                          frontiers=sets))
+    params = [p.detach().cpu() for p in model.parameters()]
+    seeds, key = batches[0]
+    window = profile_window(lambda i: _warm_step(
+        engine, model, state, data, torch.as_tensor(seeds, device=DEV), key),
+        1)
+    return dict(steps=steps, params=params, profile=window,
+                replays=engine.stats.overflow_replays)
+
+
+def phase_mesh(ds, opts, card):
+    """Phase ``train mesh``: the labor-gcn workload through
+    ``launch/gnn_step.build_gnn_engine`` at world size 1 (an NCCL group
+    of this process) and 2 (two spawned ranks on this one card in a
+    gloo group over CUDA tensors; the kernels were built above, the
+    graph is saved for them to load), each held to the single-device
+    engine on the card (:func:`mesh_hold`). Returns the counted
+    paths."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, spawn
+
+    t_phase = time.perf_counter()
+    cfg = mesh_workload(ds)
+    batches = mesh_batches(ds, cfg, opts.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    single = single_drive(ds, batches, opts.seed)
+    emit({"phase": "train mesh", "run": "single device",
+          "step_seconds": [s["seconds"] for s in single["steps"]],
+          "sampled_v": [s["sampled_v"] for s in single["steps"]],
+          "losses": [s["loss"] for s in single["steps"]],
+          "replays": single["replays"], "profile": single["profile"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(1, DEV)
+    try:
+        ws1 = mesh_drive(mesh, ds, batches, opts.seed, check_plain=True,
+                         profile=True)
+    finally:
+        dist.destroy_process_group()
+    line1 = mesh_hold("train mesh", ws1, single, cfg.feature_dim)
+    emit({"phase": "train mesh", "run": "world size 1", "card": card,
+          "profile": ws1["profile"], **line1})
+    del ws1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        g = ds.graph
+        for k, v in (("indptr", g.indptr.cpu().numpy()),
+                     ("indices", g.indices.cpu().numpy()),
+                     ("features", np.asarray(ds.features, np.float32)),
+                     ("labels", np.asarray(ds.labels))):
+            np.save(os.path.join(tmp, k + ".npy"), v)
+        t0 = time.perf_counter()
+        ws2 = spawn(_mesh_rank, 2, tmp, batches, opts.seed, device=DEV,
+                    backend="gloo", timeout_s=300.0)
+        spawn_s = time.perf_counter() - t0
+    line2 = mesh_hold("train mesh 2 ranks", ws2, single, cfg.feature_dim)
+    emit({"phase": "train mesh", "run": "world size 2 on one card",
+          "card": card, "spawn_seconds": spawn_s, **line2})
+    emit({"phase": "train mesh",
+          "seconds": time.perf_counter() - t_phase})
+    return {"train mesh": line1["launches"],
+            "train mesh 2 ranks": line2["launches"]}
+
+
 def phase_serve_path(ds, opts, path, sampler, model_name, depth, requests):
     """Phase 3, a further serving path: ``requests`` requests with
     ``sampler`` and ``model_name`` at ``depth`` layers through the
@@ -2377,11 +2705,14 @@ LM_BLOCK_PATHS = {
     "serve lm mamba2-370m": ("mamba2-370m", 4, 4096, 16, None),
     "serve lm zamba2-2.7b": ("zamba2-2.7b", 1, 8192, 16, None),
     "serve lm qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", 1, 4096, 16, 1)}
-#: phase 7, LM training: name -> (arch, batch, sequence, Adam steps), at
-#: full width and depth, remat on (each attention layer's B9 runs in the
-#: forward and again in the recompute)
-LM_TRAIN_PATHS = {"train lm gemma2-2b": ("gemma2-2b", 1, 2048, 4),
-                  "train lm mamba2-370m": ("mamba2-370m", 4, 2048, 4)}
+#: phase 7, LM training: name -> (arch, batch, sequence, Adam steps,
+#: layers), at full width, remat on (each attention layer's B9 runs in
+#: the forward and again in the recompute). The depth is cut to fit the
+#: time limit with the mesh phase: gemma2-2b to 4 of its 26 layers (two
+#: local / global pairs, every branch of B9 still on the path), mamba2-370m
+#: to 8 of its 48
+LM_TRAIN_PATHS = {"train lm gemma2-2b": ("gemma2-2b", 1, 2048, 4, 4),
+                  "train lm mamba2-370m": ("mamba2-370m", 4, 2048, 4, 8)}
 #: the prompt of the fp64 yardstick (fp64 at 32k would run minutes)
 FP64_PROMPT = 2048
 #: the tokens of a training step's fp64 yardstick (batch 1): gemma2-2b's
@@ -2788,14 +3119,16 @@ def phase_lm_train(path, opts, built=None):
     from repro_torch.optim import adam
 
     t_path = time.perf_counter()
-    arch, batch, seq, steps = LM_TRAIN_PATHS[path]
+    arch, batch, seq, steps, depth = LM_TRAIN_PATHS[path]
     args = train.parser().parse_args([
         "--workload", "lm", "--device", DEV, "--arch", arch, "--batch",
         str(batch), "--seq", str(seq), "--steps", str(steps), "--seed",
         str(opts.seed)])
     t0 = time.perf_counter()
     reused = built is not None
-    cfg, params = built if reused else train.build_lm(args)
+    cfg, params = (cut_depth(*built, depth) if reused
+                   else train.build_lm(args, num_layers=depth))
+    built = None    # the layers past the cut are freed
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     if not cfg.remat:
@@ -2842,6 +3175,8 @@ def phase_lm_train(path, opts, built=None):
     warm = run["step_seconds"][1:]
     step_ms = sum(warm) / len(warm) * 1e3
     emit({"phase": path, "arch": arch, "params": n_params,
+          "layers": cfg.num_layers, "reduced": f"depth {cfg.num_layers} "
+          f"of the arch's {get_config(arch).num_layers} layers, full width",
           "init_seconds": init_s, "params_reused_from_serving": reused,
           "batch": batch, "seq": seq, "steps": steps, "remat": cfg.remat,
           "losses": losses,
@@ -2865,6 +3200,23 @@ def phase_lm_train(path, opts, built=None):
     torch.cuda.empty_cache()
     emit({"phase": path, "seconds": time.perf_counter() - t_path})
     return launches
+
+
+def get_config(arch):
+    from repro_torch import configs
+    return configs.get_config(arch, dtype="float32")
+
+
+def cut_depth(cfg, params, num_layers):
+    """``cfg`` and ``params`` cut to their first ``num_layers`` layers (a
+    multiple of the layer pattern) at full width: each pattern entry
+    keeps its first repeats, the same tensors (no copy)."""
+    reps = num_layers // len(cfg.layer_pattern)
+    if reps * len(cfg.layer_pattern) != num_layers:
+        fail(f"{cfg.name}: {num_layers} layers is not a multiple of the "
+             f"pattern of {len(cfg.layer_pattern)}")
+    return (dataclasses.replace(cfg, num_layers=num_layers),
+            {**params, "layers": [e[:reps] for e in params["layers"]]})
 
 
 def _tensors(tree):
@@ -2945,6 +3297,9 @@ def main():
     ap.add_argument("--lm-only", action="store_true",
                     help="phase 1, then the LM phases 6-8 alone (no "
                          "kernels or ok line)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phase 1, then the train mesh phase alone (no "
+                         "kernels or ok line)")
     ap.add_argument("--parent-src", default=None,
                     help="the src directory of another tree of the port: "
                          "phase 4b also prints that tree's serial LABOR-0 "
@@ -2995,6 +3350,13 @@ def main():
           "flash_attention_sass": tensor_core_sass(_build)})
 
     records = {}
+    if opts.mesh_only:
+        from repro_torch.graph import paper_dataset
+        ds = paper_dataset("products", scale=opts.scale, seed=opts.seed)
+        phase_mesh(ds, opts, card)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "mesh_only": True})
+        return
     if opts.lm_only:
         phases_lm(opts, records, {})
         emit({"phase": "done", "seconds": time.perf_counter() - t_start,
@@ -3145,6 +3507,9 @@ def main():
 
     # -- phase 4b: checkpoints, the guardrail, faults, the pipeline ---------
     paths.update(phase_runtime(ds, opts))
+
+    # -- phase 4c: the multi-device engine, world sizes 1 and 2 -------------
+    paths.update(phase_mesh(ds, opts, card))
 
     # -- phase 5: where the serving time goes -------------------------------
     phase_profile(eng_k, data, model, seeds0, key0)

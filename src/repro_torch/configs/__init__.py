@@ -1,7 +1,7 @@
 """Architecture registry of the LM side workload (twin of
 ``repro.configs``): ``get_config("<arch-id>")`` for each of the five
-assigned architectures. The paper's GNN workload keeps its
-configuration in ``runtime/trainer.py::GNNTrainConfig``.
+assigned architectures, plus the paper's own labor-gcn workloads
+(``configs/labor_gcn.py``, the multi-device engine's configuration).
 
 Shape-cell skips: long_500k needs sub-quadratic attention, so only the
 SSM/hybrid archs run it; pure full-attention archs record a skip.
@@ -12,6 +12,7 @@ from typing import List
 
 from repro_torch.configs import (
     gemma2_2b,
+    labor_gcn,
     mamba2_370m,
     qwen3_moe_235b_a22b,
     stablelm_1_6b,
@@ -27,6 +28,9 @@ ARCHS = {
     "zamba2-2.7b": zamba2_2_7b.config,
 }
 
+GNN_ARCHS = {name: (labor_gcn.config, kw)
+             for name, kw in labor_gcn.VARIANTS.items()}
+
 # long_500k runs only for SSM/hybrid (sub-quadratic sequence mixing)
 LONG_CONTEXT_OK = {"mamba2-370m", "zamba2-2.7b"}
 
@@ -34,7 +38,11 @@ LONG_CONTEXT_OK = {"mamba2-370m", "zamba2-2.7b"}
 def get_config(arch: str, **kw):
     if arch in ARCHS:
         return ARCHS[arch](**kw)
-    raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    if arch in GNN_ARCHS:
+        fn, base = GNN_ARCHS[arch]
+        return fn(**{**base, **kw})
+    raise KeyError(f"unknown arch {arch!r}; known: "
+                   f"{sorted(ARCHS) + sorted(GNN_ARCHS)}")
 
 
 def cells_for(arch: str) -> List[dict]:

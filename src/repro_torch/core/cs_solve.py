@@ -97,7 +97,8 @@ def _segment_max(vals: torch.Tensor, offsets: torch.Tensor,
 def solve_cs(pi_e: torch.Tensor, seed_slot: torch.Tensor, deg: torch.Tensor,
              k, num_seeds: int, edge_mask: torch.Tensor, max_iters: int = 64,
              tol: float = 1e-6, c_init: Optional[torch.Tensor] = None, *,
-             iters_out: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+             iters_out: Optional[List[torch.Tensor]] = None,
+             mesh=None) -> torch.Tensor:
     """Solve eq. 14 for every seed (the reference's arguments).
 
     pi_e float32[E] (padding arbitrary); seed_slot int32[E], -1 for
@@ -105,7 +106,11 @@ def solve_cs(pi_e: torch.Tensor, seed_slot: torch.Tensor, deg: torch.Tensor,
     int32[S]); edge_mask bool[E], masked entries only on the tail;
     ``c_init`` an optional float32[S] warm start. Returns c float32[S]
     (0 for padding seeds). ``iters_out``, when given, receives the
-    iteration count as an int32 device scalar."""
+    iteration count as an int32 device scalar. ``mesh`` (a rank of the
+    multi-device engine, holding a share of the batch's seeds) takes
+    the residual's max over every rank, so the loop runs the
+    single-device solve's iterations and each seed's c is its c
+    there."""
     S = num_seeds
     dev = pi_e.device
     one = torch.ones((), dtype=torch.float32, device=dev)
@@ -161,6 +166,8 @@ def solve_cs(pi_e: torch.Tensor, seed_slot: torch.Tensor, deg: torch.Tensor,
         for _ in range(CHECK_EVERY):
             active = running()
             c_new, r_new = body(c)
+            if mesh is not None:
+                r_new = mesh.pmax(r_new)
             c = torch.where(active, c_new, c)
             resid = torch.where(active, r_new, resid)
             i = i + active.to(torch.int32)

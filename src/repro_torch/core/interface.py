@@ -93,6 +93,24 @@ def _round_up(x: int, m: int) -> int:
     return ((int(x) + m - 1) // m) * m
 
 
+def suggest_peer_caps(batch_size: int, caps: Sequence[LayerCaps],
+                      num_parts: int, safety: float = 2.0) -> tuple:
+    """Per-peer all-to-all slot counts for the multi-device engine.
+
+    ``peer_caps[i]`` bounds how many ids one rank may address to one
+    peer in an all-to-all keyed on frontier buffer ``i``: buffer 0 is
+    the rank-local seed batch, buffer ``l + 1`` is layer ``l``'s
+    ``next_seeds`` buffer (``caps[l].vertex_cap``). The same schedule
+    covers seed routing, the hidden-state exchange and the feature
+    fetch. Ids spread over owners about uniformly (modulo partition), so
+    mean / num_parts plus slack concentrates as the LayerCaps do.
+    """
+    sizes = [batch_size] + [c.vertex_cap for c in caps]
+    return tuple(
+        _round_up(int(t / num_parts * safety) + 6 * int(t ** 0.5) + 16, 8)
+        for t in sizes)
+
+
 def suggest_caps(batch_size: int, fanouts: Sequence[int], avg_degree: float,
                  max_degree: int, safety: float = 1.5,
                  max_expand: int = 1 << 22,
@@ -136,13 +154,17 @@ def pad_seeds(seeds, cap: int, device=None) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec:
     """Frozen, hashable description of a configured sampler: registry
-    name, per-layer budgets (fanouts), static caps, salt schedule. The
-    reference's per-peer all-to-all caps belong to the multi-device
-    engine, which this package does not have yet."""
+    name, per-layer budgets (fanouts), static caps, salt schedule, and
+    ``peer_caps``: the multi-device engine's per-peer all-to-all slot
+    schedule (num_layers + 1 entries, :func:`suggest_peer_caps`; None on
+    a sampler built without a partition count). :meth:`doubled` doubles
+    them with the LayerCaps, so an all-to-all overflow heals through the
+    same replay as a sampling overflow."""
     name: str
     budgets: tuple
     caps: tuple
     shared_salts: bool = False
+    peer_caps: Optional[tuple] = None
 
     def __post_init__(self):
         object.__setattr__(self, "budgets",
@@ -152,6 +174,14 @@ class SamplerSpec:
             raise ValueError(
                 f"spec {self.name!r}: {len(self.budgets)} budgets but "
                 f"{len(self.caps)} LayerCaps — need one cap per layer")
+        if self.peer_caps is not None:
+            object.__setattr__(self, "peer_caps",
+                               tuple(int(c) for c in self.peer_caps))
+            if len(self.peer_caps) != len(self.caps) + 1:
+                raise ValueError(
+                    f"spec {self.name!r}: peer_caps must have "
+                    f"num_layers + 1 = {len(self.caps) + 1} entries "
+                    f"(got {len(self.peer_caps)})")
 
     @property
     def num_layers(self) -> int:
@@ -168,10 +198,15 @@ class SamplerSpec:
                                                shared=self.shared_salts)
 
     def with_caps(self, caps: Sequence[LayerCaps]) -> "SamplerSpec":
+        """New LayerCaps; ``peer_caps`` are left as they are."""
         return dataclasses.replace(self, caps=tuple(caps))
 
     def doubled(self) -> "SamplerSpec":
-        return self.with_caps(double_caps(self.caps))
+        """Every LayerCaps buffer and every per-peer cap doubled."""
+        peer = (None if self.peer_caps is None
+                else tuple(c * 2 for c in self.peer_caps))
+        return dataclasses.replace(self, caps=tuple(double_caps(self.caps)),
+                                   peer_caps=peer)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,8 +249,35 @@ class Sampler:
         return dataclasses.replace(self, spec=self.spec.with_caps(caps))
 
     def doubled(self) -> "Sampler":
-        """The overflow-retry step: every cap doubled, same sampling."""
+        """The overflow-retry step: every cap (the per-peer caps too)
+        doubled, same sampling."""
         return dataclasses.replace(self, spec=self.spec.doubled())
+
+    def with_peer_caps(self, peer_caps) -> "Sampler":
+        """Clone with a per-peer all-to-all schedule (None: none)."""
+        return dataclasses.replace(self, spec=dataclasses.replace(
+            self.spec, peer_caps=peer_caps))
+
+    def sample_layer_partitioned(self, graph, seeds: torch.Tensor,
+                                 salt: int, layer: int, *,
+                                 seed_rows: torch.Tensor, num_vertices: int,
+                                 mesh=None, backend: Optional[str] = None
+                                 ) -> SampledLayer:
+        """One sampling layer against a partition-local CSR, on one rank
+        of the multi-device engine.
+
+        ``seeds`` are GLOBAL vertex ids owned by this partition (so the
+        stateless hash r_t, and with it the sampled set, is the
+        single-device one bit for bit); ``seed_rows`` maps each seed to
+        its row of the partition-local ``graph`` (v // P);
+        ``num_vertices`` is the global vertex count for the dense
+        per-vertex state; ``mesh`` (a ``launch.mesh.Mesh``, or None)
+        completes the batch-global reductions some samplers need
+        (LABOR's importance max, LADIES's column norms). Returns one
+        :class:`SampledLayer` in global-id space."""
+        raise NotImplementedError(
+            f"sampler {self.name!r} does not implement the "
+            "partition-local sampling path of the multi-device engine")
 
 
 def build_block(seeds: torch.Tensor, exp: dict, include: torch.Tensor,
@@ -272,4 +334,72 @@ def build_block(seeds: torch.Tensor, exp: dict, include: torch.Tensor,
         src_slot=e_src_slot, weight=e_weight, edge_mask=emask,
         src_perm=src_perm, num_seeds=num_seeds,
         num_next=num_seeds + dd.num_new, num_edges=num_sampled,
+        overflow=overflow)
+
+
+def build_block_dense(num_vertices: int, seeds: torch.Tensor, exp: dict,
+                      include: torch.Tensor, inv_p: torch.Tensor,
+                      caps: LayerCaps) -> SampledLayer:
+    """The original dense epilogue, the O(V) baseline: three V-sized
+    membership / position buffers and a full stable sort per layer
+    instead of the frontier primitives. It gives :func:`build_block`'s
+    block field for field (the same inclusion set, the same ascending
+    ``next_seeds``, the same stable ``src_perm``), which is what the
+    parity tests hold the frontier kernels to. Not on any sampling
+    path."""
+    S = seeds.shape[0]
+    dev = seeds.device
+    src, slot = exp["src"], exp["seed_slot"]
+    safe_slot = torch.clamp(slot, 0, S - 1).long()
+
+    inv_p = torch.where(include, inv_p, 0.0)
+    w = _segment_sum_sorted(inv_p, segment_offsets(slot, S))
+    weight_full = torch.where(
+        include, inv_p / torch.clamp(w[safe_slot], min=1e-20), 0.0)
+
+    num_sampled = include.sum(dtype=torch.int32)
+    sel = torch.nonzero(include).flatten()[: caps.edge_cap]
+    sel = torch.cat([sel, torch.zeros(caps.edge_cap - sel.shape[0],
+                                      dtype=sel.dtype, device=dev)])
+    emask = (torch.arange(caps.edge_cap, device=dev)
+             < torch.clamp(num_sampled, max=caps.edge_cap))
+    e_src = torch.where(emask, src[sel], -1)
+    e_dst_slot = torch.where(emask, slot[sel], -1)
+    e_weight = torch.where(emask, weight_full[sel], 0.0)
+
+    V = num_vertices
+    seeds = seeds.to(torch.int32)
+    seed_member = torch.zeros(V, dtype=torch.bool, device=dev)
+    seed_member[seeds[seeds >= 0].long()] = True
+    samp_member = torch.zeros(V, dtype=torch.bool, device=dev)
+    samp_member[e_src[emask].long()] = True
+    new_member = samp_member & ~seed_member
+    num_new = new_member.sum(dtype=torch.int32)
+    new_cap = caps.vertex_cap - S
+    if new_cap <= 0:
+        raise ValueError("vertex_cap must exceed seed buffer size")
+    new_vs = torch.nonzero(new_member).flatten()[:new_cap].to(torch.int32)
+    new_vs = torch.cat([new_vs, torch.full((new_cap - new_vs.shape[0],),
+                                           -1, dtype=torch.int32,
+                                           device=dev)])
+    next_seeds = torch.cat([seeds, new_vs])
+
+    pos = torch.full((V,), -1, dtype=torch.int32, device=dev)
+    live = next_seeds >= 0
+    pos[next_seeds[live].long()] = torch.nonzero(live).flatten().to(
+        torch.int32)
+    e_src_slot = torch.where(emask, pos[torch.where(emask, e_src, 0).long()],
+                             -1)
+
+    num_seeds = (seeds >= 0).sum(dtype=torch.int32)
+    src_perm = torch.argsort(
+        torch.where(emask, e_src_slot, caps.vertex_cap),
+        stable=True).to(torch.int32)
+    overflow = ((exp["total"] > caps.expand_cap)
+                | (num_sampled > caps.edge_cap) | (num_new > new_cap))
+    return SampledLayer(
+        seeds=seeds, next_seeds=next_seeds, src=e_src, dst_slot=e_dst_slot,
+        src_slot=e_src_slot, weight=e_weight, edge_mask=emask,
+        src_perm=src_perm, num_seeds=num_seeds,
+        num_next=num_seeds + num_new, num_edges=num_sampled,
         overflow=overflow)

@@ -11,7 +11,8 @@ LABOR-0) c_s has the closed form k/d for k < d and 1 otherwise
 LABOR-* (``CONVERGE``) iterates until the relative change of E[|T|]
 falls below ``converge_tol`` (§4.3). The per-vertex pi lives on the
 deduplicated candidate frontier (the unique expanded sources, through
-``hash_dedup``), never on a vertex-sized buffer. ``layer_dependency``
+``hash_dedup``), never on a vertex-sized buffer, except in the dense
+mode of the multi-device engine (below). ``layer_dependency``
 reuses one salt, hence r_t, across layers (labor-d, §A.8).
 ``per_edge_rng`` draws a per-edge r_ts instead (NS, the end of §3.2),
 and ``exact_k`` replaces the Poisson test by sequential Poisson
@@ -26,8 +27,16 @@ may differ in the last bit. The LABOR-* loop reads its condition on
 the host once per iteration (``cs_solve.HOST_READS``). On a weighted
 graph (§A.7) pi starts at the edge weights A_ts and c_s comes from
 ``solve_cs_weighted``; ``importance_iters`` is not consulted there, as
-in the reference. The dense partition-local mode of the multi-device
-engine is not ported.
+in the reference.
+
+On a rank of the multi-device engine
+(:meth:`LaborSampler.sample_layer_partitioned`) the seeds are the
+rank's owned share of the layer's frontier, read from its partition's
+CSR at ``seed_rows`` with global ids, and pi lives on a dense
+vertex-sized vector (``dense``): eq. 18's max over destinations is
+completed with the mesh's ``pmax`` (exact in any order), so pi, c_s and
+every decision are the single-device ones; ``solve_cs`` takes its
+residual's max over the ranks too.
 """
 from __future__ import annotations
 
@@ -71,11 +80,23 @@ def _expected_num_sampled(pi: torch.Tensor, max_c: torch.Tensor
     return torch.sum(torch.clamp(pi * max_c, max=1.0))
 
 
+def _scatter_max_c(c_edges: torch.Tensor, src: torch.Tensor,
+                   mask: torch.Tensor, num_vertices: int) -> torch.Tensor:
+    """max_{t->s} c_s per source vertex t, dense over V (0 elsewhere)."""
+    idx = torch.where(mask, src, 0).long()
+    vals = torch.where(mask, c_edges, 0.0)
+    return torch.zeros(num_vertices, dtype=torch.float32,
+                       device=src.device).scatter_reduce_(0, idx, vals,
+                                                          "amax")
+
+
 def run_importance_iterations(graph: Graph, exp: dict, k, num_seeds: int,
                               importance_iters: int,
                               converge_tol: float = 1e-4,
                               converge_max_iters: int = 30,
                               fast_solve: bool = True, *,
+                              num_vertices: Optional[int] = None,
+                              mesh=None, dense: Optional[bool] = None,
                               backend: Optional[str] = None,
                               log: Optional[dict] = None):
     """Fixed-point iterations on pi (eq. 18): pi_t <- pi_t * max_{t->s} c_s.
@@ -88,8 +109,15 @@ def run_importance_iterations(graph: Graph, exp: dict, k, num_seeds: int,
 
     ``log``, when given, receives ``outer`` (LABOR-*'s iteration count)
     and ``solves`` (each ``solve_cs`` call's iteration count, an int32
-    device scalar, in call order)."""
-    del graph  # the expansion carries everything the solve reads
+    device scalar, in call order).
+
+    ``dense`` (implied by ``mesh``) keeps pi on a dense vector over
+    ``num_vertices`` (default: the graph's) instead of the candidate
+    frontier, the layout the multi-device engine's ``pmax`` needs: each
+    vertex's pi takes the same factors either way, so the fixed point
+    is the same per vertex."""
+    if dense is None:
+        dense = mesh is not None
     src, slot, mask = exp["src"], exp["seed_slot"], exp["mask"]
     deg = exp["deg"]
     E = src.shape[0]
@@ -113,24 +141,34 @@ def run_importance_iterations(graph: Graph, exp: dict, k, num_seeds: int,
                                     kf / torch.clamp(degf, min=1.0)), 0.0)
         return pi_e, c
 
-    # candidate frontier: one slot per unique expanded source
-    dd = frontier_ops.hash_dedup(src, mask, None, E, backend=backend,
-                                 n_live=exp["live"])
-    cidx = torch.where(mask, dd.slots, E).long()
     safe_slot = torch.clamp(slot, 0, S - 1).long()
-    gather = torch.clamp(cidx, 0, E - 1)
-    pi0 = torch.ones(E, dtype=torch.float32, device=dev)
+    if dense:
+        V = num_vertices if num_vertices is not None else graph.num_vertices
+        gather = torch.where(mask, src, 0).long()
 
-    def fac_of(c):
-        # max_{t->s} c_s per candidate (max is exact in any order)
-        c_e = torch.where(mask, c[safe_slot], 0.0)
-        out = torch.zeros(E + 1, dtype=torch.float32, device=dev)
-        return out.scatter_reduce_(0, cidx, c_e, "amax")[:E]
+        def fac_of(c):
+            fac = _scatter_max_c(c[safe_slot], src, mask, V)
+            return fac if mesh is None else mesh.pmax(fac)
+
+        pi0 = torch.ones(V, dtype=torch.float32, device=dev)
+    else:
+        # candidate frontier: one slot per unique expanded source
+        dd = frontier_ops.hash_dedup(src, mask, None, E, backend=backend,
+                                     n_live=exp["live"])
+        cidx = torch.where(mask, dd.slots, E).long()
+        gather = torch.clamp(cidx, 0, E - 1)
+        pi0 = torch.ones(E, dtype=torch.float32, device=dev)
+
+        def fac_of(c):
+            # max_{t->s} c_s per candidate (max is exact in any order)
+            c_e = torch.where(mask, c[safe_slot], 0.0)
+            out = torch.zeros(E + 1, dtype=torch.float32, device=dev)
+            return out.scatter_reduce_(0, cidx, c_e, "amax")[:E]
 
     def c_of(pi, c_prev=None):
         return solve_cs(pi[gather], slot, deg, k, S, mask,
                         c_init=c_prev if fast_solve else None,
-                        iters_out=solves)
+                        iters_out=solves, mesh=mesh)
 
     def one_step(pi, c_prev=None):
         c = c_of(pi, c_prev)
@@ -165,6 +203,34 @@ def run_importance_iterations(graph: Graph, exp: dict, k, num_seeds: int,
     return pi[gather], c_of(pi, c)
 
 
+def _exact_k_include_dense(r: torch.Tensor, exp: dict, k: int
+                           ) -> torch.Tensor:
+    """The original global-sort sequential Poisson, the O(E log E)
+    baseline and the oracle ``segment_select`` is held to: a stable
+    sort by (slot, key), then the first min(k, d_s) of each segment.
+    Not on any sampling path."""
+    slot, mask = exp["seed_slot"], exp["mask"]
+    deg, seg_start = exp["deg"], exp["seg_start"]
+    S = deg.shape[0]
+    E = r.shape[0]
+    dev = r.device
+    key = torch.where(mask, torch.clamp(r, max=1e30),
+                      torch.tensor(3.4e38, dtype=torch.float32, device=dev))
+    slot_sort = torch.where(mask, slot, S)
+    # lexsort((key, slot)): by slot, ties by key, ties by position
+    order = torch.argsort(key, stable=True)
+    order = order[torch.argsort(slot_sort[order], stable=True)]
+    slot_s = slot_sort[order]
+    safe = torch.clamp(slot_s, 0, S - 1).long()
+    pos = torch.arange(E, dtype=torch.int32, device=dev)
+    pos_in_seg = pos - torch.where(slot_s < S, seg_start[safe], 0)
+    take = torch.clamp(deg[safe], max=k)
+    inc_sorted = (slot_s < S) & (pos_in_seg < take)
+    out = torch.zeros(E, dtype=torch.bool, device=dev)
+    out[order] = inc_sorted
+    return out
+
+
 def _exact_k_include(r: torch.Tensor, exp: dict, k: int, *,
                      backend: Optional[str] = None) -> torch.Tensor:
     """Sequential Poisson (§A.3): per segment the min(k, d) smallest
@@ -182,17 +248,23 @@ def layer_inclusion(graph: Graph, seeds: torch.Tensor, salt: int, k: int,
                     caps: LayerCaps, *, importance_iters: int = 0,
                     per_edge_rng: bool = False, exact_k: bool = False,
                     converge_tol: float = 1e-4, converge_max_iters: int = 30,
-                    fast_solve: bool = True, backend: Optional[str] = None):
+                    fast_solve: bool = True,
+                    seed_rows: Optional[torch.Tensor] = None,
+                    num_vertices: Optional[int] = None, mesh=None,
+                    backend: Optional[str] = None):
     """The sampling decision of one layer, before the block epilogue:
     (expanded neighbourhood, include bool[expand_cap], 1/p_ts
-    float32[expand_cap])."""
+    float32[expand_cap]). ``seed_rows``/``num_vertices``/``mesh`` are
+    the partition-local mode (module docstring)."""
     S = seeds.shape[0]
-    exp = expand_seed_edges(graph, seeds, caps.expand_cap, backend=backend)
+    exp = expand_seed_edges(graph, seeds, caps.expand_cap,
+                            seed_rows=seed_rows, backend=backend)
     src, slot, mask = exp["src"], exp["seed_slot"], exp["mask"]
     if graph.weights is None:
         pi_e, c = run_importance_iterations(
             graph, exp, k, S, importance_iters, converge_tol,
-            converge_max_iters, fast_solve, backend=backend)
+            converge_max_iters, fast_solve, num_vertices=num_vertices,
+            mesh=mesh, backend=backend)
     else:
         # weighted (§A.7): per-edge pi starts at A_ts
         a_e = exp["edge_weight"]
@@ -311,6 +383,24 @@ class LaborSampler(Sampler):
                *, backend: Optional[str] = None) -> List[SampledLayer]:
         return sample_with_salts(self.config, self.spec.caps, graph, seeds,
                                  salts, backend=backend)
+
+    def sample_layer_partitioned(self, graph: Graph, seeds: torch.Tensor,
+                                 salt: int, layer: int, *,
+                                 seed_rows: torch.Tensor, num_vertices: int,
+                                 mesh=None, backend: Optional[str] = None
+                                 ) -> SampledLayer:
+        cfg = self.config
+        caps = self.spec.caps[layer]
+        exp, include, inv_p = layer_inclusion(
+            graph, seeds, salt, cfg.fanouts[layer], caps,
+            importance_iters=cfg.importance_iters,
+            per_edge_rng=cfg.per_edge_rng, exact_k=cfg.exact_k,
+            converge_tol=cfg.converge_tol,
+            converge_max_iters=cfg.converge_max_iters,
+            fast_solve=cfg.fast_solve, seed_rows=seed_rows,
+            num_vertices=num_vertices, mesh=mesh, backend=backend)
+        return build_block(seeds, exp, include, inv_p, caps,
+                           backend=backend)
 
 
 def neighbor_sampler(fanouts: Sequence[int], caps: Sequence[LayerCaps],

@@ -25,8 +25,18 @@ water-fill's totals are ``torch.sum``s, which may differ from the
 reference's in the last bit. Its grow loop (at most 20 iterations, as
 ``hi`` stops below 1e12) and its 50 bisection steps run with the state
 frozen on the device: no host read. On a weighted graph (§A.7) each
-edge's column-norm term carries A_ts^2. The dense partition-local mode
-is not ported.
+edge's column-norm term carries A_ts^2.
+
+On a rank of the multi-device engine
+(:meth:`LadiesSampler.sample_layer_partitioned`) each rank holds its
+owned share of the layer's seeds and adds their column-norm terms into
+a dense vertex-sized vector (``dense``); the mesh's ``psum`` completes
+the batch-global p_t, and the water-fill, the draws and the
+memberships run on that vector, the same on every rank. The psum adds
+the ranks' partial sums in another association than the single-device
+per-candidate sum, so p_t may differ from it in the last bit: the
+sampled sets are equal in practice, not by construction (as in the
+reference).
 """
 from __future__ import annotations
 
@@ -61,8 +71,9 @@ def _edge_contrib(exp: dict) -> torch.Tensor:
 
 def _layer_probs(graph: Graph, exp: dict, num_vertices: int) -> torch.Tensor:
     """p_t ∝ sum_s A_ts^2 / d_s^2 over a dense vertex vector (0 outside
-    N(S)): the oracle the candidate-frontier path is tested against.
-    Not used on any sampling path."""
+    N(S)): the multi-device layout (one aligned vector on every rank for
+    the psum) and the oracle the candidate-frontier path is tested
+    against."""
     del graph
     src, mask = exp["src"], exp["mask"]
     idx = torch.where(mask, src, 0).long()
@@ -110,23 +121,41 @@ def _waterfill_lambda(p: torch.Tensor, n: int, iters: int = 50
 
 def sample_layer_ladies(graph: Graph, seeds: torch.Tensor, salt: int, n: int,
                         caps: LayerCaps, poisson: bool = False, *,
+                        seed_rows: Optional[torch.Tensor] = None,
+                        num_vertices: Optional[int] = None, mesh=None,
+                        dense: Optional[bool] = None,
                         backend: Optional[str] = None,
                         log: Optional[dict] = None) -> SampledLayer:
     """One LADIES (or, with ``poisson``, PLADIES) layer from a uint32
     ``salt``. ``log``, when given, receives the layer's candidate
-    probabilities ``p`` and PLADIES's ``lam``."""
-    exp = expand_seed_edges(graph, seeds, caps.expand_cap, backend=backend)
+    probabilities ``p`` and PLADIES's ``lam``. ``seed_rows``/
+    ``num_vertices``/``mesh``/``dense`` are the partition-local mode
+    (module docstring; ``dense`` is implied by ``mesh``)."""
+    if dense is None:
+        dense = mesh is not None
+    exp = expand_seed_edges(graph, seeds, caps.expand_cap,
+                            seed_rows=seed_rows, backend=backend)
     src, mask = exp["src"], exp["mask"]
     E = src.shape[0]
     dev = src.device
-    # candidate frontier: every distinct expanded source, ascending
-    dd = frontier_ops.hash_dedup(src, mask, None, E, backend=backend,
-                                 n_live=exp["live"])
-    cands = dd.new
-    cidx = torch.where(mask, dd.slots, 0)
-    p = _candidate_sum(_edge_contrib(exp), cidx, mask, E, backend=backend,
-                       n_live=exp["live"])
-    valid = (cands >= 0) & (p > 0)
+    if dense:
+        V = num_vertices if num_vertices is not None else graph.num_vertices
+        p = _layer_probs(graph, exp, V)
+        if mesh is not None:
+            p = mesh.psum(p)
+        cands = torch.arange(V, dtype=torch.int32, device=dev)
+        valid = p > 0
+        cidx = torch.where(mask, src, 0)   # per-edge index into p
+        E = V
+    else:
+        # candidate frontier: every distinct expanded source, ascending
+        dd = frontier_ops.hash_dedup(src, mask, None, E, backend=backend,
+                                     n_live=exp["live"])
+        cands = dd.new
+        cidx = torch.where(mask, dd.slots, 0)
+        p = _candidate_sum(_edge_contrib(exp), cidx, mask, E,
+                           backend=backend, n_live=exp["live"])
+        valid = (cands >= 0) & (p > 0)
 
     if poisson:
         lam = _waterfill_lambda(p, n)
@@ -199,6 +228,17 @@ class LadiesSampler(Sampler):
             blocks.append(blk)
             cur = blk.next_seeds
         return blocks
+
+    def sample_layer_partitioned(self, graph: Graph, seeds: torch.Tensor,
+                                 salt: int, layer: int, *,
+                                 seed_rows: torch.Tensor, num_vertices: int,
+                                 mesh=None, backend: Optional[str] = None
+                                 ) -> SampledLayer:
+        return sample_layer_ladies(
+            graph, seeds, salt, self.config.layer_sizes[layer],
+            self.spec.caps[layer], poisson=self.config.poisson,
+            seed_rows=seed_rows, num_vertices=num_vertices, mesh=mesh,
+            backend=backend)
 
 
 def ladies_sampler(layer_sizes, caps) -> LadiesSampler:

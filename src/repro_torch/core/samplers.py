@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core.interface import (LayerCaps, SampledLayer, Sampler,
                                         SamplerSpec, build_block,
-                                        suggest_caps)
+                                        suggest_caps, suggest_peer_caps)
 from repro_torch.core.labor import CONVERGE, LaborConfig, LaborSampler
 from repro_torch.core.ladies import LadiesConfig, LadiesSampler
 from repro_torch.graph.csr import Graph, expand_seed_edges
@@ -64,6 +64,20 @@ class FullSampler(Sampler):
             blocks.append(blk)
             cur = blk.next_seeds
         return blocks
+
+    def sample_layer_partitioned(self, graph: Graph, seeds: torch.Tensor,
+                                 salt: int, layer: int, *,
+                                 seed_rows: torch.Tensor, num_vertices: int,
+                                 mesh=None, backend: Optional[str] = None
+                                 ) -> SampledLayer:
+        del salt, mesh, num_vertices  # deterministic, per seed: no collective
+        caps = self.spec.caps[layer]
+        exp = expand_seed_edges(graph, seeds, caps.expand_cap,
+                                seed_rows=seed_rows, backend=backend)
+        inv_p = torch.ones(caps.expand_cap, dtype=torch.float32,
+                           device=seeds.device)
+        return build_block(seeds, exp, exp["mask"], inv_p, caps,
+                           backend=backend)
 
 
 class UnknownSamplerError(ValueError):
@@ -166,12 +180,16 @@ def from_graph_stats(name: str, *, batch_size: int, fanouts: Sequence[int],
                      num_vertices: Optional[int] = None,
                      num_edges: Optional[int] = None,
                      layer_sizes: Optional[Sequence[int]] = None,
-                     safety: float = 2.0) -> Sampler:
+                     safety: float = 2.0,
+                     num_parts: Optional[int] = None) -> Sampler:
     """A sampler with its cap schedule derived from graph statistics:
     ``suggest_caps`` sizes the buffers from the fanouts (from
     ``max_degree`` per layer for ``dense`` entries such as ``full``), and
     the ladies family takes ``layer_sizes`` as budgets (default
-    ``batch_size * k`` per layer)."""
+    ``batch_size * k`` per layer). ``num_parts`` adds the multi-device
+    engine's per-peer all-to-all caps (``spec.peer_caps``,
+    ``suggest_peer_caps``), with ``batch_size`` read as the RANK-LOCAL
+    batch; overflow replay doubles both schedules together."""
     entry = resolve(name)
     fanouts = tuple(int(k) for k in fanouts)
     cap_fanouts = (tuple(int(max_degree) for _ in fanouts) if entry.dense
@@ -189,19 +207,25 @@ def from_graph_stats(name: str, *, batch_size: int, fanouts: Sequence[int],
                 f"{len(fanouts)} layers")
     else:
         budgets = fanouts
-    return entry.builder(budgets, tuple(caps))
+    sampler = entry.builder(budgets, tuple(caps))
+    if num_parts is not None:
+        sampler = sampler.with_peer_caps(
+            suggest_peer_caps(batch_size, caps, num_parts, safety=safety))
+    return sampler
 
 
 def from_dataset(name: str, ds, *, batch_size: int, fanouts: Sequence[int],
                  layer_sizes: Optional[Sequence[int]] = None,
-                 safety: float = 2.0) -> Sampler:
+                 safety: float = 2.0,
+                 num_parts: Optional[int] = None) -> Sampler:
     """:func:`from_graph_stats` with the statistics of a GraphDataset."""
     g = ds.graph
     return from_graph_stats(
         name, batch_size=batch_size, fanouts=fanouts,
         avg_degree=g.num_edges / g.num_vertices,
         max_degree=ds.max_in_degree, num_vertices=g.num_vertices,
-        num_edges=g.num_edges, layer_sizes=layer_sizes, safety=safety)
+        num_edges=g.num_edges, layer_sizes=layer_sizes, safety=safety,
+        num_parts=num_parts)
 
 
 def _labor_builder(name: str, iters: int, **kw) -> Callable:

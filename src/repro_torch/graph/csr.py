@@ -106,6 +106,7 @@ def reverse(graph: Graph) -> Graph:
 
 
 def expand_seed_edges(graph: Graph, seeds: torch.Tensor, edge_cap: int, *,
+                      seed_rows: Optional[torch.Tensor] = None,
                       backend: Optional[str] = None) -> dict:
     """Edge-centric CSR expansion with a static edge budget.
 
@@ -119,6 +120,11 @@ def expand_seed_edges(graph: Graph, seeds: torch.Tensor, edge_cap: int, *,
     float32[edge_cap] (A_ts of each edge, 0 past the real prefix) when
     ``graph.weights`` is set, else None.
 
+    ``seed_rows`` maps each seed to its CSR row (default: the seed id):
+    the multi-device engine passes local rows (v // P) so that sampling
+    reads a partition-local CSR while the seeds, and the global source
+    ids that CSR stores, stay global.
+
     Bit-exact with the reference, including its clamped segment bumps
     when ``total > edge_cap``. The nonzero-degree row list goes through
     the frontier ``compact`` primitive, so no host sync is needed.
@@ -130,7 +136,8 @@ def expand_seed_edges(graph: Graph, seeds: torch.Tensor, edge_cap: int, *,
     dev = seeds.device
     indptr = graph.indptr
     valid = seeds >= 0
-    safe = torch.where(valid, seeds, 0).long()
+    safe = torch.where(valid, seeds if seed_rows is None else seed_rows,
+                       0).long()
     deg = torch.where(valid, indptr[safe + 1] - indptr[safe], 0)
     seg_start = torch.cumsum(deg, 0, dtype=torch.int32) - deg
     total = deg.sum(dtype=torch.int32)

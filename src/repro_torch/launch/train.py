@@ -42,6 +42,20 @@ the reference's, so either package resumes the other's runs),
       --scale 0.25 --fanouts 10,10,10 --batch-size 1024 --steps 12 \
       --ckpt-dir ck --guard rollback --inject corrupt_feats@9=1e8 \
       --pipeline prefetch
+
+``--mesh-devices N`` (N > 0) trains on the multi-device engine: the
+launcher starts N ranks itself (one process each, a process group with
+rendezvous on a free local port: NCCL on ``--device cuda``, rank r on
+``cuda:r``; gloo on ``--device cpu``), each samples its partition of the
+graph and they exchange features and gradients; ``--grad-compression
+bf16|int8`` compresses the gradient all-reduce. ``--batch-size`` is the
+global batch, divided over the ranks. Rank 0 prints the report, with
+the same keys, and with the same ``--seed`` the same
+``avg_sampled_vertices`` as the single-device run:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --dataset flickr --scale 0.02 --fanouts 5,5 --batch-size 128 \
+      --steps 8 --seed 3 --mesh-devices 4
 """
 from __future__ import annotations
 
@@ -92,6 +106,13 @@ def parser() -> argparse.ArgumentParser:
                     help="clean batches before spike detection arms")
     ap.add_argument("--guard-spike-factor", type=float, default=4.0,
                     help="loss > factor x EMA flags a spike")
+    ap.add_argument("--mesh-devices", type=int, default=0,
+                    help="> 0: train on the multi-device engine over this "
+                         "many ranks, which the launcher starts (NCCL on "
+                         "cuda, one card a rank; gloo on cpu)")
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "bf16", "int8"],
+                    help="gradient all-reduce compression (mesh only)")
     ap.add_argument("--inject", default=None,
                     help="fault-injection plan (runtime/inject.py spec, "
                          "e.g. 'nan_grad@5,torn_ckpt@1'); joined to "
@@ -133,15 +154,19 @@ def config(args):
                           pipeline=args.pipeline, guard=args.guard,
                           guard_warmup=args.guard_warmup,
                           guard_spike_factor=args.guard_spike_factor,
+                          mesh_devices=args.mesh_devices,
+                          grad_compression=args.grad_compression,
                           inject=inject_lib.parse(inject_spec))
 
 
-def train_report(ds, cfg):
-    """Train, evaluate on the validation split; returns (the report,
-    the output of ``train_gnn``)."""
+def train_report(ds, cfg, evaluate: bool = True):
+    """Train, evaluate on the validation split (unless ``evaluate`` is
+    False: ``val_acc`` None); returns (the report, the output of
+    ``train_gnn``)."""
     from repro_torch.runtime.trainer import evaluate_gnn, train_gnn
     out = train_gnn(ds, cfg)
-    val = evaluate_gnn(ds, out["params"], cfg, ds.val_idx)
+    val = (evaluate_gnn(ds, out["params"], cfg, ds.val_idx) if evaluate
+           else None)
     h = out["history"]
     report = {
         "final_loss": h[-1]["loss"], "val_acc": val,
@@ -213,18 +238,39 @@ def train_lm(args, built=None):
             "params": params, "opt_state": opt}
 
 
+def _no_tf32():
+    # fp32 products stay fp32 on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _rank_report(mesh, args):
+    """One rank of ``--mesh-devices``: train; rank 0 evaluates, on its
+    own device, and its report is the launcher's."""
+    _no_tf32()
+    cfg = config(args)
+    if args.device == "cuda":
+        import dataclasses
+        cfg = dataclasses.replace(cfg, device=str(mesh.device))
+    report, _ = train_report(dataset(args), cfg, evaluate=mesh.rank == 0)
+    return report
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda was asked for but CUDA is not "
                            "available (use --device cpu)")
-    # fp32 products stay fp32 on the card
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _no_tf32()
     if args.workload == "lm":
         run = train_lm(args)
         return {k: run[k] for k in ("first_loss", "final_loss")}
-    report, _ = train_report(dataset(args), config(args))
+    if args.mesh_devices:
+        from repro_torch.launch.mesh import spawn
+        report = spawn(_rank_report, args.mesh_devices, args,
+                       device=args.device)
+    else:
+        report, _ = train_report(dataset(args), config(args))
     print(json.dumps(report, indent=1))
     return report
 

@@ -330,15 +330,17 @@ def unnest(tree: Any, prefix: str = "") -> Dict[str, Any]:
 
 
 def state_tree(model, state) -> dict:
-    """``{"params", "opt"[, "guard"]}`` of a model and its
+    """``{"params", "opt"[, "err"][, "guard"]}`` of a model and its
     ``EngineState``, the reference trainer's ``state_tree`` (the leaves
     are the live tensors: :func:`save` and :class:`AsyncSaver` copy
-    them)."""
+    them; ``err`` is the gradient compression's error feedback)."""
     opt = state.opt
     tree = {"params": nest({k: p.detach()
                             for k, p in model.named_parameters()}),
             "opt": {"mu": nest(opt["mu"]), "nu": nest(opt["nu"]),
                     "step": opt["step"]}}
+    if state.err is not None:
+        tree["err"] = nest(state.err)
     if state.guard is not None:
         tree["guard"] = dict(state.guard)
     return tree
@@ -347,7 +349,7 @@ def state_tree(model, state) -> dict:
 def load_state_tree(model, state, tree: dict):
     """Write ``tree["params"]`` into ``model`` (in place) and return
     ``state`` with the tree's optimizer state and, where the tree has
-    one, its guard state."""
+    them, its error feedback and guard state."""
     names = [k for k, _ in model.named_parameters()]
     params = unnest(tree["params"])
     with torch.no_grad():
@@ -358,7 +360,9 @@ def load_state_tree(model, state, tree: dict):
     return dataclasses.replace(
         state, opt={"mu": {k: mu[k] for k in names},
                     "nu": {k: nu[k] for k in names}, "step": opt["step"]},
-        guard=tree.get("guard", state.guard))
+        guard=tree.get("guard", state.guard),
+        err=(state.err if "err" not in tree
+             else {k: v for k, v in unnest(tree["err"]).items()}))
 
 
 # ----------------------------------------------------------------------
@@ -370,8 +374,9 @@ def engine_restore_meta(sampler, mesh_devices: int = 0,
                         backend: Optional[str] = None) -> dict:
     """The JSON record of the specialisation a run trains under: the
     sampler (name, budgets, caps, which may have grown through overflow
-    replay, salt schedule; ``peer_caps`` null), the mesh shape, the
-    gradient compression and the port's backend (``torch_backend``)."""
+    replay, salt schedule, the per-peer all-to-all caps), the mesh shape,
+    the gradient compression and the port's backend
+    (``torch_backend``)."""
     spec = sampler.spec
     return {
         **({} if backend is None else {"torch_backend": backend}),
@@ -381,7 +386,8 @@ def engine_restore_meta(sampler, mesh_devices: int = 0,
             "caps": [[c.expand_cap, c.edge_cap, c.vertex_cap]
                      for c in spec.caps],
             "shared_salts": bool(spec.shared_salts),
-            "peer_caps": None,
+            "peer_caps": (None if spec.peer_caps is None
+                          else list(spec.peer_caps)),
         },
         "mesh_devices": int(mesh_devices),
         "grad_compression": grad_compression,
@@ -396,8 +402,8 @@ def validate_restore_meta(meta: dict, sampler, mesh_devices: int = 0,
     sampler's name, budgets or salt schedule, the mesh shape, the
     compression or (``backend`` not None) the ``torch_backend`` raises
     ``ValueError``; ``"backend"`` (the reference's kernels) is not
-    checked. A checkpoint without a ``sampler`` record passes
-    unchanged."""
+    checked. The caps and the per-peer caps are the checkpoint's. A
+    checkpoint without a ``sampler`` record passes unchanged."""
     from repro_torch.core.interface import LayerCaps
 
     rec = meta.get("sampler")
@@ -429,4 +435,7 @@ def validate_restore_meta(meta: dict, sampler, mesh_devices: int = 0,
             "checkpoint was trained under a different engine "
             "specialization — refusing to resume:\n  "
             + "\n  ".join(problems))
-    return sampler.with_caps(tuple(LayerCaps(*c) for c in rec["caps"]))
+    peer = rec.get("peer_caps")
+    return sampler.with_caps(
+        tuple(LayerCaps(*c) for c in rec["caps"])).with_peer_caps(
+        None if peer is None else tuple(peer))

@@ -1,5 +1,6 @@
 """The pipelined training driver: sample-ahead execution of the engine's
-staged step (twin of ``repro.runtime.pipeline``, single device).
+staged step (twin of ``repro.runtime.pipeline``), on one device or on
+a mesh.
 
 The sampling half of a step depends on the salt only, not on the
 parameters, so batch t+1's blocks can be queued while batch t trains.
@@ -17,7 +18,10 @@ The driver runs the engine's stages (:meth:`TrainEngine.sample_stage`,
 Every stage runs on the current stream, as in the reference's single
 execution stream: the stages are the serial step's ops in the serial
 step's order per batch, so the sampled sets and the parameters equal
-the serial run's.
+the serial run's. On a mesh the stages are the mesh engine's (seed
+routing and partition-local sampling; the feature all-to-all; the
+partitioned compute and the gradient all-reduce): every rank runs the
+same driver, so the ranks call the same collectives in the same order.
 
 Overflow protocol: the driver owns an :class:`~repro_torch.data.
 gnn_loader.OverflowLedger` of depth 1 over compute dispatches. Computes

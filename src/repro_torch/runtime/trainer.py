@@ -1,6 +1,6 @@
 """The GNN training loop (twin of ``repro.runtime.trainer``'s
 ``GNNTrainConfig``, ``build_sampler``, ``make_gnn_train_step``,
-``train_gnn`` and ``evaluate_gnn``), single device.
+``train_gnn`` and ``evaluate_gnn``), on one device or on a mesh.
 
 The batch schedule is a pure function of the step: seeds
 ``SeedBatches.at(step)``, key ``fold_in(key(seed + 1), step)``, as in
@@ -17,8 +17,15 @@ batch is quarantined (re-drawn under fresh salts) or rolled back to the
 last verified checkpoint, and the loop resumes bit for bit. ``inject``
 arms the fault-injection plan (``runtime/inject.py``), and a
 ``runtime.fault_tolerance.Preemptor`` passed to :func:`train_gnn` plays
-the preemption signal, checked before each step. The mesh is not ported:
-``mesh_devices`` raises ``NotImplementedError``.
+the preemption signal, checked before each step.
+
+With ``mesh_devices`` = N the loop runs on every rank of an N-rank
+process group (``launch.mesh.spawn``, or the train launcher's
+``--mesh-devices``; one rank sets up its own group): the engine is the
+mesh engine, its sampler sized for the rank-local batch with the
+per-peer all-to-all caps, and ``grad_compression`` compresses the
+gradient all-reduce. Every rank takes the same global batches and keys
+and ends with the same parameters; rank 0 alone writes checkpoints.
 """
 from __future__ import annotations
 
@@ -35,7 +42,9 @@ from repro_torch.core import samplers as sampler_registry
 from repro_torch.core.interface import Sampler, pad_seeds
 from repro_torch.data.gnn_loader import (LoaderStats, SeedBatches,
                                          sample_with_retry)
+from repro_torch.distributed import compression
 from repro_torch.graph.generators import GraphDataset
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import gnn as gnn_models
 from repro_torch.optim import adam
 from repro_torch.runtime import checkpoint as ckpt_lib
@@ -78,24 +87,32 @@ class GNNTrainConfig:
     guard_max_rollbacks: int = 3
     # a runtime.inject spec string or a parsed FaultPlan
     inject: Any = None
-    # not ported: raises NotImplementedError when set
+    # > 0: the mesh engine over this many ranks (the process group of
+    # launch.mesh); the batch is global and divides over the ranks
     mesh_devices: int = 0
+    grad_compression: str = "none"      # none | bf16 | int8 (mesh only)
 
     def __post_init__(self):
-        if self.mesh_devices:
-            raise NotImplementedError(
-                "not ported to repro_torch yet: mesh_devices")
+        if self.grad_compression not in compression.MODES:
+            raise ValueError(f"unknown grad_compression "
+                             f"{self.grad_compression!r}; choose from "
+                             f"{compression.MODES}")
         if self.model not in gnn_models.MODELS:
             raise ValueError(f"unknown model {self.model!r}; choose from "
                              f"{sorted(gnn_models.MODELS)}")
 
 
-def build_sampler(ds: GraphDataset, cfg: GNNTrainConfig) -> Sampler:
+def build_sampler(ds: GraphDataset, cfg: GNNTrainConfig,
+                  num_parts: Optional[int] = None) -> Sampler:
     """The registry entry with caps from the dataset's graph statistics
-    (train and eval share it)."""
+    (train and eval share it). On a mesh (``num_parts``) the caps are
+    sized for the rank-local batch and the per-peer all-to-all schedule
+    rides along."""
+    batch = cfg.batch_size // num_parts if num_parts else cfg.batch_size
     return sampler_registry.from_dataset(
-        cfg.sampler, ds, batch_size=cfg.batch_size, fanouts=cfg.fanouts,
-        layer_sizes=cfg.layer_sizes, safety=cfg.cap_safety)
+        cfg.sampler, ds, batch_size=batch, fanouts=cfg.fanouts,
+        layer_sizes=cfg.layer_sizes, safety=cfg.cap_safety,
+        num_parts=num_parts)
 
 
 def make_gnn_train_step(opt_cfg: adam.AdamConfig, backend=None):
@@ -135,6 +152,16 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig,
     plan = cfg.inject
     if isinstance(plan, str):
         plan = inject_lib.parse(plan)
+    mesh = None
+    if cfg.mesh_devices:
+        if not cfg.fused:
+            raise ValueError("the mesh engine is always fused")
+        mesh = make_mesh(cfg.mesh_devices, cfg.device)
+    elif cfg.grad_compression != "none":
+        raise ValueError("grad_compression compresses the mesh's "
+                         "all-reduce: it needs mesh_devices")
+    # rank 0 alone writes checkpoints; every rank reads them
+    rank0 = mesh is None or mesh.rank == 0
     guard_cfg = None
     if cfg.guard != "off":
         if not cfg.fused:
@@ -147,9 +174,12 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig,
                                 max_quarantine=cfg.guard_max_quarantine,
                                 max_rollbacks=cfg.guard_max_rollbacks)
     stats = LoaderStats()
-    engine = TrainEngine(build_sampler(ds, cfg), adam.AdamConfig(lr=cfg.lr),
+    engine = TrainEngine(build_sampler(ds, cfg,
+                                       num_parts=cfg.mesh_devices or None),
+                         adam.AdamConfig(lr=cfg.lr), mesh=mesh,
                          device=cfg.device, stats=stats, guard=guard_cfg,
                          inject=plan,
+                         grad_compression=cfg.grad_compression,
                          max_replay_retries=cfg.max_replay_retries)
     in_dim, n_cls = ds.features.shape[1], int(ds.labels.max()) + 1
     init = gnn_models.MODELS[cfg.model][0]
@@ -181,12 +211,15 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig,
     start_step = 0
     saver = None
     if cfg.ckpt_dir:
-        saver = ckpt_lib.AsyncSaver(cfg.ckpt_dir, inject=plan)
+        if rank0:
+            saver = ckpt_lib.AsyncSaver(cfg.ckpt_dir, inject=plan)
         last = ckpt_lib.latest_step(cfg.ckpt_dir)
         if last is not None:
             meta = ckpt_lib.read_meta(cfg.ckpt_dir, last)
             engine.sampler = ckpt_lib.validate_restore_meta(
-                meta, engine.sampler, backend=engine.backend)
+                meta, engine.sampler, mesh_devices=cfg.mesh_devices,
+                grad_compression=cfg.grad_compression,
+                backend=engine.backend)
             # a checkpoint without a guard entry keeps the fresh guard
             # state (its warmup runs again)
             state = ckpt_lib.load_state_tree(model, state,
@@ -212,15 +245,22 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig,
     def drain_replays():
         for idx, rm in engine.replayed:
             if idx is not None:
-                device_history[idx] = {**device_history[idx], **rm}
+                device_history[idx] = {**device_history[idx],
+                                       **scalars(rm)}
         engine.replayed.clear()
+
+    def scalars(m):
+        """The history keeps scalar metrics: the mesh step's frontier
+        tensors would pin memory for the whole run."""
+        return {k: v for k, v in m.items() if k != "frontiers"}
 
     def absorb(done):
         """Fold the driver's retired batches into the history (in tag
         order) and, guarded, their flags into the rail."""
         nonlocal m
         for dtag, dm in done:
-            device_history.append({"step": start_step + dtag + 1, **dm})
+            device_history.append({"step": start_step + dtag + 1,
+                                   **scalars(dm)})
             m = dm
             if rail is not None:
                 ps, pseeds, pkey = pending_meta.popleft()
@@ -257,7 +297,8 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig,
                 m = m2
                 idx = w.step - start_step
                 if 0 <= idx < len(device_history):
-                    device_history[idx] = {"step": w.step + 1, **m2}
+                    device_history[idx] = {"step": w.step + 1,
+                                           **scalars(m2)}
                 return m2
             try:
                 guard_cfg.quarantine_policy().run(
@@ -281,6 +322,8 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig,
                 "faults persisted across restores")
         if saver is not None:
             saver.wait()  # the save in flight lands (or raises) first
+        if mesh is not None and cfg.ckpt_dir:
+            mesh.psum(torch.zeros(1, device=mesh.device))  # a barrier
         good = (ckpt_lib.latest_good_step(cfg.ckpt_dir)
                 if cfg.ckpt_dir else None)
         if good is None or good < start_step:
@@ -315,8 +358,10 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig,
 
     def ckpt_meta():
         return {"loss": float(m["loss"]),
-                **ckpt_lib.engine_restore_meta(engine.sampler,
-                                               backend=engine.backend)}
+                **ckpt_lib.engine_restore_meta(
+                    engine.sampler, mesh_devices=cfg.mesh_devices,
+                    grad_compression=cfg.grad_compression,
+                    backend=engine.backend)}
 
     def train_step(step):
         """Dispatch step ``step``'s batch on the configured path."""
@@ -336,7 +381,7 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig,
         elif cfg.fused:
             model, state, m = engine.step(model, state, data_t, seeds, sk,
                                           tag=len(device_history))
-            device_history.append({"step": step + 1, **m})
+            device_history.append({"step": step + 1, **scalars(m)})
             drain_replays()
             if rail is not None:
                 due = rail.record(step, seeds, sk, m["guard_flags"])
@@ -381,12 +426,13 @@ def train_gnn(ds: GraphDataset, cfg: GNNTrainConfig,
                     if preemptor is not None:
                         preemptor.check(step)
                     train_step(step)
-                    if saver and (step + 1) % cfg.ckpt_every == 0:
+                    if cfg.ckpt_dir and (step + 1) % cfg.ckpt_every == 0:
                         drain()
                         heal()  # a flagged batch is recovered, never saved
-                        saver.save(step + 1,
-                                   ckpt_lib.state_tree(model, state),
-                                   meta=ckpt_meta())
+                        if saver:
+                            saver.save(step + 1,
+                                       ckpt_lib.state_tree(model, state),
+                                       meta=ckpt_meta())
                     step += 1
                 drain()
                 heal()

@@ -248,7 +248,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 
 def test_configs_match_repro():
     """get_config, reduce_cfg and cells_for: every field of the five
-    archs equal to repro's."""
+    archs equal to repro's, and of the labor-gcn workloads (the
+    multi-device engine's configurations)."""
     assert sorted(tconfigs.ARCHS) == sorted(jconfigs.ARCHS)
     for arch in tconfigs.ARCHS:
         t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
@@ -256,5 +257,13 @@ def test_configs_match_repro():
         assert (dataclasses.asdict(treduce(t))
                 == dataclasses.asdict(jreduce(j))), arch
         assert tconfigs.cells_for(arch) == jconfigs.cells_for(arch)
+    assert sorted(tconfigs.GNN_ARCHS) == sorted(jconfigs.GNN_ARCHS)
+    for arch in tconfigs.GNN_ARCHS:
+        assert (dataclasses.asdict(tconfigs.get_config(arch))
+                == dataclasses.asdict(jconfigs.get_config(arch))), arch
+    assert (dataclasses.asdict(tconfigs.get_config("labor-gcn",
+                                                   global_batch=8))
+            == dataclasses.asdict(jconfigs.get_config("labor-gcn",
+                                                      global_batch=8)))
     with pytest.raises(KeyError):
-        tconfigs.get_config("labor-gcn")
+        tconfigs.get_config("labor-gin")

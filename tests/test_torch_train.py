@@ -240,8 +240,15 @@ def test_cuda_is_the_default_and_unported_options_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tlaunch.main(SURFACE)
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        ttrain.GNNTrainConfig(mesh_devices=4)
+    # the mesh is ported: a config asks for it, and a 4-rank mesh wants
+    # its ranks started (launch.mesh.spawn) before it is made
+    cfg = ttrain.GNNTrainConfig(mesh_devices=4, grad_compression="int8")
+    assert (cfg.mesh_devices, cfg.grad_compression) == (4, "int8")
+    with pytest.raises(ValueError, match="grad_compression"):
+        ttrain.GNNTrainConfig(grad_compression="fp8")
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="ranks started"):
+        make_mesh(4, "cpu")
     cfg = ttrain.GNNTrainConfig(guard="rollback", pipeline="full",
                                 ckpt_dir="ck", fused=False,
                                 inject="nan_grad@3")
@@ -269,6 +276,10 @@ def test_port_modules_load_neither_jax_nor_repro():
         "import repro_torch.runtime.guard, repro_torch.runtime.pipeline\n"
         "import repro_torch.runtime.fault_tolerance\n"
         "import repro_torch.data.gnn_loader, repro_torch.runtime.engine\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.gnn_step\n"
+        "import repro_torch.distributed.feature_exchange\n"
+        "import repro_torch.distributed.compression\n"
+        "import repro_torch.graph.partition, repro_torch.configs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
