@@ -203,14 +203,33 @@ error exits non-zero:
      losses finite, the last below the first; one more step and one
      no-gradient forward under the profiler (busy ms, operations, idle
      share, B9's share);
-  8. LM serving of the other blocks, as phase 6: mamba2-370m (batch 4, a
+  8. LM serving of the other blocks, as phase 6, at full width and cut
+     depth (each cut listed in its line as ``reduced``; the time limit,
+     with phase 9): mamba2-370m at 24 of its 48 layers (batch 4, a
      4,096-token prompt, 16 tokens; the conv and SSM states in the cache
-     checks, as the prefill left them), zamba2-2.7b (1, 8,192, 16; its
-     shared attention is 9 B9 launches, MHA of 32 heads of 80) and
-     qwen3-moe-235b-a22b at full width cut to one of its 94 layers
-     (listed in its line as ``reduced``; 1, 4,096, 16; GQA 64/4 at hd
-     128). ``--lm-only`` runs phase 1 and then phases 6-8 alone (no
-     ``kernels`` or ``ok`` line).
+     checks, as the prefill left them), zamba2-2.7b at 18 of its 54 (1,
+     8,192, 16; its shared attention is 3 B9 launches, MHA of 32 heads
+     of 80) and qwen3-moe-235b-a22b at one of its 94 layers (1, 4,096,
+     16; GQA 64/4 at hd 128);
+  9. the encoder-decoder (cross-attention and an encoder, at
+     whisper-large-v3's widths: ``encdec_cfg()``, 32 encoder layers and
+     32 decoder layers of self- plus cross-attention, 20 heads of 64,
+     1,500 frames, random weights): ``serve lm whisper-large-v3`` as
+     phase 6 at full depth (batch 4, 1,500 frames of the launcher's
+     ``normal(key(seed))`` source, a 416-token prompt, 32 tokens; one B9
+     launch per decoder self-attention layer, 32 a prefill; the cross
+     K/V among the cache checks; the encoder and the cross-attention
+     take the plain path, as in the reference), then ``train lm
+     whisper-large-v3`` as phase 7 from the same weights, cut to 8 of
+     the decoder's 64 layer entries and 4 of the encoder's 32 (listed
+     in its line; 4 x 448 tokens and the serving path's 1,500 random
+     frames, handed to ``train_lm``: its default zero frames overflow a
+     deep encoder's gradient, ROADMAP C7; 4 steps; step 0's checks and 2
+     microbatches against 1, the encoder's gradients and parameters
+     included, a cross block's ``bk`` gradient, 0 in exact arithmetic,
+     held to the noise level; B9 2 x 4 launches a step; one step on
+     batch 0 must lower batch 0's loss). ``--lm-only`` runs phase 1 and
+     then phases 6-9 alone (no ``kernels`` or ``ok`` line).
 
 The line before the last is the ``kernels`` JSON object: per kernel,
 ``launches_by_path`` holds its count on each counted path (serve, serve
@@ -219,8 +238,9 @@ async, train <sampler> for each sampler, train sage, train gatv2, the
 weight-gradient path, train guarded, train prefetch, train full, serve
 checkpoint, train mesh, train mesh 2 ranks, serve lm gemma2-2b, serve
 lm stablelm-1.6b, train lm gemma2-2b, train lm mamba2-370m, serve lm
-mamba2-370m, serve lm zamba2-2.7b, serve lm qwen3-moe-235b-a22b) and
-``launches`` their sum.
+mamba2-370m, serve lm zamba2-2.7b, serve lm qwen3-moe-235b-a22b, serve
+lm whisper-large-v3, train lm whisper-large-v3) and ``launches`` their
+sum.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits 1 and prints no result.
 """
@@ -2698,12 +2718,14 @@ LM_PATHS = {"serve lm gemma2-2b": ("gemma2-2b", 1, 32768, 32, None),
             "serve lm stablelm-1.6b": ("stablelm-1.6b", 4, 4096, 16, None)}
 #: phase 8, the other blocks: Mamba2 alone (its conv and SSM states, no
 #: attention), zamba2's Mamba2 backbone with one shared attention + MLP
-#: used 9 times (B9 as MHA of 32 heads of 80, an 8,192-token prompt),
-#: and qwen3-moe's MoE (128 experts of 1,536, top-8) behind GQA 64/4 at
-#: hd 128 (a ratio of 16), at its full width and one of its 94 layers
+#: (B9 as MHA of 32 heads of 80, an 8,192-token prompt), and qwen3-moe's
+#: MoE (128 experts of 1,536, top-8) behind GQA 64/4 at hd 128 (a ratio
+#: of 16), at its full width and one of its 94 layers; mamba2-370m cut to
+#: 24 of its 48 layers and zamba2-2.7b to 18 of its 54 (3 uses of the
+#: shared block) to fit the time limit with phase 9
 LM_BLOCK_PATHS = {
-    "serve lm mamba2-370m": ("mamba2-370m", 4, 4096, 16, None),
-    "serve lm zamba2-2.7b": ("zamba2-2.7b", 1, 8192, 16, None),
+    "serve lm mamba2-370m": ("mamba2-370m", 4, 4096, 16, 24),
+    "serve lm zamba2-2.7b": ("zamba2-2.7b", 1, 8192, 16, 18),
     "serve lm qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", 1, 4096, 16, 1)}
 #: phase 7, LM training: name -> (arch, batch, sequence, Adam steps,
 #: layers), at full width, remat on (each attention layer's B9 runs in
@@ -2713,6 +2735,20 @@ LM_BLOCK_PATHS = {
 #: to 8 of its 48
 LM_TRAIN_PATHS = {"train lm gemma2-2b": ("gemma2-2b", 1, 2048, 4, 4),
                   "train lm mamba2-370m": ("mamba2-370m", 4, 2048, 4, 8)}
+#: phase 9, the encoder-decoder (cross-attention and an encoder; no
+#: registered arch has either, so the config is ``encdec_cfg()``'s,
+#: whisper-large-v3's widths): serving at full depth, batch 4, 1,500
+#: frames, a 416-token prompt and 32 generated tokens (416 + 32 =
+#: whisper's 448 target positions), as ``LM_PATHS``; then training from
+#: the same weights, 4 x 448 tokens and 1,500 frames, 4 steps, as
+#: ``LM_TRAIN_PATHS`` (layers: the decoder's, 8 of 64 to fit the time
+#: limit: at full depth the path takes about 70 s; the encoder is cut to
+#: the same fraction, 4 of 32)
+ENCDEC_ARCH = "whisper-large-v3"
+LM_ENCDEC_PATHS = {"serve lm whisper-large-v3": (ENCDEC_ARCH, 4, 416, 32,
+                                                 None)}
+LM_ENCDEC_TRAIN_PATHS = {"train lm whisper-large-v3": (ENCDEC_ARCH, 4, 448,
+                                                       4, 8)}
 #: the prompt of the fp64 yardstick (fp64 at 32k would run minutes)
 FP64_PROMPT = 2048
 #: the tokens of a training step's fp64 yardstick (batch 1): gemma2-2b's
@@ -2843,41 +2879,84 @@ def rel_l2_or_fail(what, got, want, tol=LM_TOL):
     return e
 
 
+def encdec_cfg():
+    """The encoder-decoder of phase 9 at whisper-large-v3's published
+    widths (openai/whisper-large-v3 ``config.json``: d_model 1280, 32
+    encoder and 32 decoder layers, 20 heads of 64, ffn 5120, vocab
+    51866, 1,500 source positions, 448 target positions), in the
+    reference's family: an ``is_encoder`` stack of 32 ``("attn",)``
+    layers, and a decoder of ``("attn", "xattn")`` x 32 with mixers
+    ``("none", "mlp")`` attending the encoder's 1,500 frames; MHA,
+    ``qkv_bias``, layernorm, gelu, a non-gated MLP, tied embeddings,
+    fp32. The stub frontend's frame embeddings are the encoder's input
+    (the mel and convolution frontend is not modelled, as in the
+    reference), so nothing is downloaded."""
+    from repro_torch.models.transformer.config import TransformerConfig
+    common = dict(d_model=1280, n_heads=20, n_kv_heads=20, head_dim=64,
+                  d_ff=5120, vocab=51866, qkv_bias=True, norm="layernorm",
+                  activation="gelu", gated_mlp=False, tie_embeddings=True,
+                  dtype="float32", remat=True)
+    encoder = TransformerConfig(name="whisper-large-v3-encoder",
+                                num_layers=32, layer_pattern=("attn",),
+                                is_encoder=True, **common)
+    return TransformerConfig(name=ENCDEC_ARCH, num_layers=64,
+                             layer_pattern=("attn", "xattn"),
+                             mixers=("none", "mlp"), encoder=encoder,
+                             xattn_source_len=1500, xattn_source_dim=1280,
+                             **common)
+
+
+def self_attention_kinds(cfg):
+    """The pattern entries that are causal self-attention (zamba2's
+    shared block included), the ones B9 runs: not Mamba2, not
+    cross-attention, and none of an encoder's."""
+    if cfg.is_encoder:
+        return []
+    return [k for k in cfg.layer_pattern if k not in ("mamba", "xattn")]
+
+
 def n_attention(cfg):
-    """The attention layers of a config (zamba2's shared block once per
-    use): B9's launches in one forward on the ``cuda`` backend."""
-    return sum(k != "mamba" for k in cfg.layer_pattern) * cfg.repeats
+    """The causal self-attention layers of a config (zamba2's shared
+    block once per use): B9's launches in one forward on the ``cuda``
+    backend. Cross-attention and the encoder take the plain path."""
+    return len(self_attention_kinds(cfg)) * cfg.repeats
 
 
 def phase_lm(path, opts, records):
     """A further path: LM serving through ``repro_torch.launch.serve``'s
     ``serve_lm`` at full width (random weights from ``--seed``): counts
-    zeroed before, read after (one B9 launch per attention layer); B9
-    held against its plain version on the real q, k and v of the first
-    attention layers; the prefill recomputed on the plain path on the
-    card (last logits and every cache tensor: K/V, and Mamba2's conv and
-    SSM states as the prefill left them), the decode teacher-forced from
-    both caches with the kernel path's tokens; both fp32 paths against
-    fp64 at a ``FP64_PROMPT`` prompt; 3 decode steps and one prefill
-    under the profiler. Returns the counts and (config, parameters)."""
+    zeroed before, read after (one B9 launch per causal self-attention
+    layer); B9 held against its plain version on the real q, k and v of
+    the first attention layers; the prefill recomputed on the plain
+    path on the card (last logits and every cache tensor: K/V, the cross
+    K/V, and Mamba2's conv and SSM states as the prefill left them), the
+    decode teacher-forced from both caches with the kernel path's
+    tokens; both fp32 paths against fp64 at a ``FP64_PROMPT`` prompt; 3
+    decode steps and one prefill under the profiler. A config with
+    cross-attention gets the launcher's source (``serve.source_frames``)
+    in every prefill. Returns the counts and (config, parameters)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve
     from repro_torch.models.transformer import stack
 
     t_path = time.perf_counter()
-    arch, batch, prompt, gen, depth = {**LM_PATHS, **LM_BLOCK_PATHS}[path]
+    arch, batch, prompt, gen, depth = {**LM_PATHS, **LM_BLOCK_PATHS,
+                                       **LM_ENCDEC_PATHS}[path]
     args = serve.parser().parse_args([
         "--workload", "lm", "--device", DEV, "--arch", arch, "--batch",
         str(batch), "--prompt-len", str(prompt), "--gen", str(gen),
         "--seed", str(opts.seed)])
     t0 = time.perf_counter()
-    cfg, params, prompts = built = serve.build_lm(args, num_layers=depth)
+    cfg, params, prompts = built = serve.build_lm(args, num_layers=depth,
+                                                  cfg=unregistered(arch))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _tensors(params))
     n_attn = n_attention(cfg)
+    # the launcher's source (None without cross-attention)
+    xs = serve.source_frames(cfg, batch, opts.seed, DEV)
     # warm-up outside the counts: cuBLAS's shapes, the allocator's pools
-    stack.prefill(params, prompts[:, :256], cfg)
+    stack.prefill(params, prompts[:, :256], cfg, xsource=xs)
     torch.cuda.synchronize()
 
     # the main path, counted; the first attention layers' q, k, v kept
@@ -2885,7 +2964,7 @@ def phase_lm(path, opts, records):
     # them (the decode advances them in place)
     captured, states = [], []
     orig, orig_widen = fa.flash_attention, stack.widen_cache
-    n_check = sum(k != "mamba" for k in cfg.layer_pattern)
+    n_check = len(self_attention_kinds(cfg))
 
     def spy(q, k, v, *a):
         if len(captured) < n_check:
@@ -2894,7 +2973,7 @@ def phase_lm(path, opts, records):
 
     def widen_spy(cache, extra):
         states.extend({n: t.clone() for n, t in c.items()
-                       if n not in ("k", "v")} for c in cache)
+                       if n in ("conv", "ssm")} for c in cache)
         return orig_widen(cache, extra)
 
     torch.cuda.empty_cache()
@@ -2910,12 +2989,13 @@ def phase_lm(path, opts, records):
     peak = torch.cuda.max_memory_allocated() / 2**30
     if launches["flash_attention"] != n_attn:
         fail(f"{path}: B9 launched {launches['flash_attention']} times for "
-             f"{n_attn} attention layers")
+             f"{n_attn} causal self-attention layers")
     toks = res["tokens"]
     if (toks.shape != (batch, gen) or not bool(torch.isfinite(
             res["last_logits"]).all())
             or not bool(((toks >= 0) & (toks < cfg.vocab)).all())):
         fail(f"{path}: tokens {tuple(toks.shape)} or non-finite logits")
+    stages = {"init": init_s, "serve": time.perf_counter() - t0 - init_s}
     line = {"phase": path, "arch": arch, "params": n_params,
             "init_seconds": init_s, "batch": batch, "prompt": prompt,
             "gen": gen, "prefill_ms": res["prefill_s"] * 1e3,
@@ -2924,9 +3004,12 @@ def phase_lm(path, opts, records):
             "prefill_tokens_per_s": batch * prompt / res["prefill_s"],
             "launches": launches, "peak_memory_gib": peak,
             "sample": toks[0, :12].tolist()}
+    if cfg.encoder is not None:
+        line.update(frames=cfg.xattn_source_len,
+                    encoder_layers=cfg.encoder.num_layers,
+                    decoder_layers=cfg.num_layers)
     if depth is not None:
-        from repro_torch import configs as cfgreg
-        line["reduced"] = [f"num_layers {cfgreg.get_config(arch).num_layers}"
+        line["reduced"] = [f"num_layers {get_config(arch).num_layers}"
                            f" -> {depth}"]
     emit(line)
 
@@ -2948,11 +3031,13 @@ def phase_lm(path, opts, records):
                     records["flash_attention"], library)
     del captured
     torch.cuda.empty_cache()
+    lap = time.perf_counter()
+    stages["B9 check"] = lap - t0 - sum(stages.values())
 
     # the prefill on the plain path from the same weights; the kernel
     # path's cache with its states as the prefill left them
     plain_logits, plain_cache = stack.prefill(params, prompts, cfg,
-                                              backend="eager")
+                                              xsource=xs, backend="eager")
     torch.cuda.synchronize()
     cache = [{**c, **st} for c, st in zip(res["cache"], states)]
     checks = {"last_logits_rel_l2": rel_l2_or_fail(
@@ -2981,17 +3066,22 @@ def phase_lm(path, opts, records):
         flips += int((lk.argmax(-1) != lp.argmax(-1)).sum())
     checks.update(decode_logits_max_rel_l2=worst,
                   decode_argmax_differences=flips)
+    stages["plain recompute"] = time.perf_counter() - lap
+    lap = time.perf_counter()
     decode_window = profile_window(lambda j: stack.decode_step(
         params, toks[:, j:j + 1], cache, prompt + j, cfg), 3)
     del res, cache, states, plain_cache, plain_logits, lk, lp
     torch.cuda.empty_cache()
+    stages["decode profile"] = time.perf_counter() - lap
+    lap = time.perf_counter()
 
     # both fp32 paths against fp64 at a shorter prompt
     short = prompts[:, :FP64_PROMPT]
-    lk, _ = stack.prefill(params, short, cfg, backend="cuda")
-    lp, _ = stack.prefill(params, short, cfg, backend="eager")
+    lk, _ = stack.prefill(params, short, cfg, xsource=xs, backend="cuda")
+    lp, _ = stack.prefill(params, short, cfg, xsource=xs, backend="eager")
     p64 = _to_double(params)
-    l64, _ = stack.prefill(p64, short, cfg, backend="eager")
+    l64, _ = stack.prefill(p64, short, cfg, backend="eager",
+                           xsource=None if xs is None else xs.double())
     torch.cuda.synchronize()
     del p64
     torch.cuda.empty_cache()
@@ -3002,14 +3092,19 @@ def phase_lm(path, opts, records):
         "plain_rel_l2": rel_l2_or_fail(f"{path} fp64 check, plain path",
                                        lp, l64)}
     emit({"phase": path, "recompute": "plain path on the card", **checks})
+    stages["fp64"] = time.perf_counter() - lap
+    lap = time.perf_counter()
 
     emit({"phase": path, "profile": "3 decode steps", **decode_window})
-    window = profile_window(lambda i: stack.prefill(params, prompts, cfg), 1,
+    window = profile_window(lambda i: stack.prefill(params, prompts, cfg,
+                                                    xsource=xs), 1,
                             share_of="flash")
     emit({"phase": path, "profile": "one prefill", **window})
-    del prompts, built
+    del prompts, built, xs
     torch.cuda.empty_cache()
-    emit({"phase": path, "seconds": time.perf_counter() - t_path})
+    stages["prefill profile"] = time.perf_counter() - lap
+    emit({"phase": path, "seconds": time.perf_counter() - t_path,
+          "stage_seconds": stages})
     return launches, (cfg, params)
 
 
@@ -3037,6 +3132,34 @@ def updated(cfg, params, grads, opt_cfg):
     return out
 
 
+def exact_zero(cfg):
+    """The flattened names of the gradients that are 0 in exact
+    arithmetic: each cross-attention block's ``bk`` (no rotary, so bk
+    shifts all of a query's keys alike, which leaves the softmax as it
+    is). Computed, they are rounding noise (~1e-10 in fp32), so a
+    relative distance between two of them measures nothing."""
+    if not cfg.qkv_bias:
+        return set()
+    return {f"layers/{i}/{r}/mix/bk" for i, kind in
+            enumerate(cfg.layer_pattern) if kind == "xattn"
+            for r in range(cfg.repeats)}
+
+
+def noise_or_fail(what, grads, zero, bound=1e-5):
+    """Each gradient of ``zero`` (:func:`exact_zero`) at the noise level:
+    its L2 norm at most ``bound`` of its block's ``bv`` gradient's.
+    Returns the largest ratio."""
+    worst = 0.0
+    for n in sorted(zero):
+        r = (grads[n].double().norm() / grads[n[:-2] + "bv"].double().norm()
+             .clamp(min=1e-300)).item()
+        if not r <= bound:
+            fail(f"{what} {n}: {r} of its block's bv gradient (a gradient "
+                 f"that is 0 in exact arithmetic; bound {bound})")
+        worst = max(worst, r)
+    return worst
+
+
 def train_step0_checks(path, cfg, params, batch, opt_cfg):
     """Step 0 recomputed from ``params`` on the kernel path and on the
     plain path: the losses within 1e-5 relative, every gradient and
@@ -3046,7 +3169,11 @@ def train_step0_checks(path, cfg, params, batch, opt_cfg):
     fp64 recompute runs with remat off, so it also holds the fp32 paths'
     checkpointed gradients against a plain autograd. One path's
     gradients wait on the host while the other's are on the card
-    (gemma2-2b's take 10.4 GB)."""
+    (gemma2-2b's take 10.4 GB). The gradients of :func:`exact_zero`
+    are held to the noise level in each path instead
+    (:func:`noise_or_fail`), and their updated parameters, which Adam
+    moves by up to lr along the noise's sign, within 2 lr of each other
+    entrywise."""
     from repro_torch.models.transformer import lm
 
     def grads(backend, p, b, c=cfg):
@@ -3054,17 +3181,21 @@ def train_step0_checks(path, cfg, params, batch, opt_cfg):
         return loss.item(), g
 
     out = {}
-    # the fp64 yardstick on the batch's first TRAIN_FP64_SEQ tokens
-    short = {k: v[:1, :TRAIN_FP64_SEQ] for k, v in batch.items()}
+    # the fp64 yardstick on the batch's first TRAIN_FP64_SEQ tokens (and
+    # all of its first row's frames)
+    short = {k: v[:1] if k == "xsource" else v[:1, :TRAIN_FP64_SEQ]
+             for k, v in batch.items()}
     lk, gk = grads("cuda", params, short)
     gk = to_host(gk)
     lp, gp = grads("eager", params, short)
     gp = to_host(gp)
     p64 = _to_double(params)
-    l64, g64 = grads("eager", p64, short,
+    l64, g64 = grads("eager", p64, {k: v.double() if v.is_floating_point()
+                                    else v for k, v in short.items()},
                      dataclasses.replace(cfg, remat=False))
     del p64
-    names = list(g64)
+    zero = exact_zero(cfg)
+    names = [n for n in g64 if n not in zero]
     for what, loss in (("kernel", lk), ("plain", lp)):
         if not abs(loss - l64) <= 1e-5 * abs(l64):
             fail(f"{path} step 0 fp64 check: the {what} path's loss {loss} "
@@ -3072,8 +3203,15 @@ def train_step0_checks(path, cfg, params, batch, opt_cfg):
     out["fp64"] = {"tokens": TRAIN_FP64_SEQ, "remat": False, "loss": l64,
                    "loss_kernel": lk, "loss_plain": lp,
                    "gradients": against_fp64(
-                       f"{path} step 0 fp64 check, gradient", on_card(gk),
-                       on_card(gp), (g64[n] for n in names), names)}
+                       f"{path} step 0 fp64 check, gradient",
+                       (gk[n].to(DEV) for n in names),
+                       (gp[n].to(DEV) for n in names),
+                       (g64[n] for n in names), names)}
+    if zero:
+        out["fp64"]["exact_zero_gradient_max_ratio"] = {
+            what: noise_or_fail(f"{path} step 0 fp64 check, {what} path",
+                                g, zero)
+            for what, g in (("kernel", gk), ("plain", gp), ("fp64", g64))}
     del gk, gp, g64
     torch.cuda.empty_cache()
 
@@ -3083,18 +3221,36 @@ def train_step0_checks(path, cfg, params, batch, opt_cfg):
     lp, gp = grads("eager", params, batch)
     if not abs(lk - lp) <= 1e-5 * abs(lp):
         fail(f"{path} step 0 loss: kernel path {lk}, plain path {lp}")
-    names = list(gp)
+    names = [n for n in gp if n not in zero]
     out["loss_kernel"], out["loss_plain"] = lk, lp
     out["gradient_max_rel_l2"] = kernel_vs_plain(
-        f"{path} step 0 gradient", on_card(gk), (gp[n] for n in names),
-        names)
+        f"{path} step 0 gradient", (gk[n].to(DEV) for n in names),
+        (gp[n] for n in names), names)
+    if zero:
+        out["exact_zero_gradient_max_ratio"] = {
+            what: noise_or_fail(f"{path} step 0, {what} path", g, zero)
+            for what, g in (("kernel", gk), ("plain", gp))}
     plain_new = updated(cfg, params, gp, opt_cfg)
     kernel_new = updated(cfg, params, {n: t.to(DEV) for n, t in gk.items()},
                          opt_cfg)
     del gk
     out["updated_max_rel_l2"] = kernel_vs_plain(
-        f"{path} step 0 updated parameter", on_card(kernel_new),
-        on_card(plain_new), names)
+        f"{path} step 0 updated parameter",
+        (kernel_new[n].to(DEV) for n in names),
+        (plain_new[n].to(DEV) for n in names), names)
+    for n in zero:
+        d = (kernel_new[n] - plain_new[n]).abs().max().item()
+        if not d <= 2 * opt_cfg.lr:
+            fail(f"{path} step 0 updated parameter {n}: {d} apart (bound "
+                 f"2 lr)")
+    if cfg.encoder is not None:
+        # the batch's loss after the kernel path's step on it
+        stepped = lm.unflatten_params(
+            {n: t.to(DEV) for n, t in kernel_new.items()}, params)
+        with torch.no_grad():
+            out["loss_after_one_step"] = lm.loss_fn(stepped, batch,
+                                                    cfg).item()
+        del stepped
     del kernel_new, plain_new
     torch.cuda.empty_cache()
     return out
@@ -3110,16 +3266,31 @@ def phase_lm_train(path, opts, built=None):
     against the 1-microbatch one on the same batch (loss within 1e-5,
     gradients within 1e-4 relative L2; the reference's own test); then
     the run's steps, counts zeroed before and read after (B9: 2 launches
-    per attention layer a step, the forward's and the recompute's);
-    finite losses, the last below the first; one more step and one
-    forward under the profiler (B9's share of each)."""
+    per causal self-attention layer a step, the forward's and the
+    recompute's); finite losses, the last below the first; one more
+    step and one forward under the profiler (B9's share of each).
+    An encoder-decoder is held to one step on batch 0 lowering batch
+    0's loss instead of the run's last loss below its first: on 1,500
+    random frames the losses of 4 fresh bigram batches at lr 1e-3 stay
+    within 11.10-11.23 at every depth from 8 to 64 (and at lr 3e-4), so
+    the order of the first and the last is a coin toss, and batch 0's
+    loss after the 4 steps moved to 12.15, 13.32 and 10.91 at depths 8,
+    16 and 64: a measurement of Adam's first steps at lr 1e-3, printed,
+    not gated.
+
+    A config with cross-attention trains, and is checked, on the serving
+    path's random frames (``serve.source_frames``), handed to
+    ``train_lm``: its default, the reference's zero frames, makes a
+    32-layer layernorm encoder's gradient overflow to NaN on step 0
+    (ROADMAP C7), and gives the encoder's weights no gradient."""
     from repro_torch.data.tokens import BigramStream
     from repro_torch.launch import train
     from repro_torch.models.transformer import lm
     from repro_torch.optim import adam
 
     t_path = time.perf_counter()
-    arch, batch, seq, steps, depth = LM_TRAIN_PATHS[path]
+    arch, batch, seq, steps, depth = {**LM_TRAIN_PATHS,
+                                      **LM_ENCDEC_TRAIN_PATHS}[path]
     args = train.parser().parse_args([
         "--workload", "lm", "--device", DEV, "--arch", arch, "--batch",
         str(batch), "--seq", str(seq), "--steps", str(steps), "--seed",
@@ -3127,7 +3298,8 @@ def phase_lm_train(path, opts, built=None):
     t0 = time.perf_counter()
     reused = built is not None
     cfg, params = (cut_depth(*built, depth) if reused
-                   else train.build_lm(args, num_layers=depth))
+                   else train.build_lm(args, num_layers=depth,
+                                       cfg=unregistered(arch)))
     built = None    # the layers past the cut are freed
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -3140,50 +3312,84 @@ def phase_lm_train(path, opts, built=None):
     toks, labels = BigramStream(cfg.vocab, seed=opts.seed).batch(
         batch, seq, device=DEV)
     b0 = {"tokens": toks, "labels": labels}
+    if cfg.xattn_source_len:
+        from repro_torch.launch import serve
+        b0["xsource"] = serve.source_frames(cfg, batch, opts.seed, DEV)
+    stages = {"init": init_s}
+    lap = time.perf_counter()
     checks = train_step0_checks(path, cfg, params, b0, opt_cfg)
+    stages["step 0 checks"] = time.perf_counter() - lap
     if batch > 1:
         l1, g1 = lm.make_grad_fn(cfg)(params, b0)
         l2, g2 = lm.make_grad_fn(cfg, num_microbatches=2)(params, b0)
         if not abs(l1.item() - l2.item()) <= 1e-5 * abs(l1.item()):
             fail(f"{path}: 2 microbatches' loss {l2.item()} against "
                  f"{l1.item()}")
-        names = list(g1)
+        zero = exact_zero(cfg)
+        names = [n for n in g1 if n not in zero]
         checks["microbatches"] = {
             "n": 2, "loss_1": l1.item(), "loss_2": l2.item(),
             "gradient_max_rel_l2": kernel_vs_plain(
                 f"{path} 2 microbatches' gradient", (g2[n] for n in names),
                 (g1[n] for n in names), names, tol=1e-4)}
+        for k, g in (("1", g1), ("2", g2)):
+            if zero:
+                checks["microbatches"][f"exact_zero_ratio_{k}"] = \
+                    noise_or_fail(f"{path} {k} microbatches", g, zero)
         del g1, g2
     emit({"phase": path, "recompute": "step 0, plain path and fp64 on the "
           "card", **checks})
     torch.cuda.empty_cache()
+    stages["microbatches"] = (time.perf_counter() - lap
+                              - stages["step 0 checks"])
+    lap = time.perf_counter()
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    run = train.train_lm(args, (cfg, params))
+    run = train.train_lm(args, (cfg, params), frames=b0.get("xsource"))
     torch.cuda.synchronize()
+    stages["run"] = time.perf_counter() - lap
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = 2 * n_attn * steps
     if launches["flash_attention"] != want:
         fail(f"{path}: B9 launched {launches['flash_attention']} times, "
-             f"not 2 x {n_attn} attention layers x {steps} steps")
+             f"not 2 x {n_attn} causal self-attention layers x {steps} "
+             "steps")
     losses = run["losses"]
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
-            losses[0]:
+    with torch.no_grad():   # batch 0 again, after the run's steps
+        held = lm.loss_fn(run["params"], b0, cfg).item()
+    if not all(math.isfinite(x) for x in losses + [held]):
+        fail(f"{path}: losses {losses}, batch 0 after the run {held}")
+    if cfg.encoder is None and not losses[-1] < losses[0]:
         fail(f"{path}: losses {losses}")
+    if cfg.encoder is not None and not (checks["loss_after_one_step"]
+                                        < checks["loss_kernel"]):
+        fail(f"{path}: batch 0's loss {checks['loss_kernel']}, after one "
+             f"step on it {checks['loss_after_one_step']}")
     warm = run["step_seconds"][1:]
     step_ms = sum(warm) / len(warm) * 1e3
-    emit({"phase": path, "arch": arch, "params": n_params,
-          "layers": cfg.num_layers, "reduced": f"depth {cfg.num_layers} "
-          f"of the arch's {get_config(arch).num_layers} layers, full width",
-          "init_seconds": init_s, "params_reused_from_serving": reused,
-          "batch": batch, "seq": seq, "steps": steps, "remat": cfg.remat,
-          "losses": losses,
-          "step_ms": [t * 1e3 for t in run["step_seconds"]],
-          "warm_step_ms": step_ms,
-          "tokens_per_s": batch * seq / step_ms * 1e3,
-          "launches": launches, "peak_memory_gib": peak})
+    full = get_config(arch)
+    reduced = (f"depth {cfg.num_layers} of the arch's {full.num_layers} "
+               "layers")
+    if cfg.encoder is not None:
+        reduced += (f", encoder {cfg.encoder.num_layers} of "
+                    f"{full.encoder.num_layers}")
+    line = {"phase": path, "arch": arch, "params": n_params,
+            "layers": cfg.num_layers, "reduced": reduced + ", full width",
+            "init_seconds": init_s, "params_reused_from_serving": reused,
+            "batch": batch, "seq": seq, "steps": steps, "remat": cfg.remat,
+            "losses": losses, "batch0_loss_before_after": [
+                checks["loss_kernel"], held],
+            "step_ms": [t * 1e3 for t in run["step_seconds"]],
+            "warm_step_ms": step_ms,
+            "tokens_per_s": batch * seq / step_ms * 1e3,
+            "launches": launches, "peak_memory_gib": peak}
+    if cfg.xattn_source_len:
+        line.update(frames=cfg.xattn_source_len,
+                    frames_drawn_by="serve.source_frames")
+    emit(line)
+    lap = time.perf_counter()
 
     params, opt = run["params"], run["opt_state"]
     del run
@@ -3198,25 +3404,40 @@ def phase_lm_train(path, opts, built=None):
     del params, opt, step, b0, toks, labels
     gc.collect()
     torch.cuda.empty_cache()
-    emit({"phase": path, "seconds": time.perf_counter() - t_path})
+    stages["profiles"] = time.perf_counter() - lap
+    emit({"phase": path, "seconds": time.perf_counter() - t_path,
+          "stage_seconds": stages})
     return launches
+
+
+def unregistered(arch):
+    """The config of an arch this script builds itself (phase 9's
+    encoder-decoder), else None: the launchers take ``--arch``'s."""
+    return encdec_cfg() if arch == ENCDEC_ARCH else None
 
 
 def get_config(arch):
     from repro_torch import configs
-    return configs.get_config(arch, dtype="float32")
+    return unregistered(arch) or configs.get_config(arch, dtype="float32")
 
 
 def cut_depth(cfg, params, num_layers):
     """``cfg`` and ``params`` cut to their first ``num_layers`` layers (a
     multiple of the layer pattern) at full width: each pattern entry
-    keeps its first repeats, the same tensors (no copy)."""
+    keeps its first repeats, the same tensors (no copy). An encoder is
+    cut to the same fraction of its layers."""
     reps = num_layers // len(cfg.layer_pattern)
     if reps * len(cfg.layer_pattern) != num_layers:
         fail(f"{cfg.name}: {num_layers} layers is not a multiple of the "
              f"pattern of {len(cfg.layer_pattern)}")
-    return (dataclasses.replace(cfg, num_layers=num_layers),
-            {**params, "layers": [e[:reps] for e in params["layers"]]})
+    out_cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    out = {**params, "layers": [e[:reps] for e in params["layers"]]}
+    if cfg.encoder is not None:
+        enc_cfg, out["encoder"] = cut_depth(
+            cfg.encoder, params["encoder"],
+            cfg.encoder.num_layers * num_layers // cfg.num_layers)
+        out_cfg = dataclasses.replace(out_cfg, encoder=enc_cfg)
+    return out_cfg, out
 
 
 def _tensors(tree):
@@ -3239,10 +3460,12 @@ def _to_double(tree):
 
 
 def phases_lm(opts, records, paths):
-    """Phases 6-8: B9's adversarial cases; serving the dense archs
+    """Phases 6-9: B9's adversarial cases; serving the dense archs
     (``LM_PATHS``); training (``LM_TRAIN_PATHS``, gemma2-2b from phase 6's
     weights, the same draw); serving the Mamba2, zamba2 and MoE archs
-    (``LM_BLOCK_PATHS``). Adds each path's counts to ``paths``."""
+    (``LM_BLOCK_PATHS``); serving and then training the encoder-decoder
+    (``LM_ENCDEC_PATHS``, ``LM_ENCDEC_TRAIN_PATHS``, one draw of the
+    weights). Adds each path's counts to ``paths``."""
     records["flash_attention"] = Record(
         "flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:30",
@@ -3264,6 +3487,14 @@ def phases_lm(opts, records, paths):
     for path in LM_BLOCK_PATHS:
         paths[path], built = phase_lm(path, opts, records)
         del built
+        gc.collect()
+        torch.cuda.empty_cache()
+    for path in LM_ENCDEC_PATHS:
+        paths[path], built = phase_lm(path, opts, records)
+        kept[built[0].name] = built
+        del built
+    for path, (arch, *_) in LM_ENCDEC_TRAIN_PATHS.items():
+        paths[path] = phase_lm_train(path, opts, kept.pop(arch, None))
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3295,7 +3526,7 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (no kernels or ok line)")
     ap.add_argument("--lm-only", action="store_true",
-                    help="phase 1, then the LM phases 6-8 alone (no "
+                    help="phase 1, then the LM phases 6-9 alone (no "
                          "kernels or ok line)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="phase 1, then the train mesh phase alone (no "
@@ -3514,7 +3745,7 @@ def main():
     # -- phase 5: where the serving time goes -------------------------------
     phase_profile(eng_k, data, model, seeds0, key0)
 
-    # -- phases 6-8: LM serving and training, with B9 ----------------------
+    # -- phases 6-9: LM serving and training, with B9 ----------------------
     # the GNN phases' tensors go first (GATv2 peaked at 56 GiB)
     del built, ds, engine, data, model, eng_k, eng_e, logits_k, logits_e
     del blocks_k, blocks_e, flags_k, flags_e, seeds0, seeds_t

@@ -42,9 +42,15 @@ zamba2-2.7b, qwen3-moe-235b-a22b; or ``--reduce``d):
 
 The weights come from ``init_params(key(seed))`` and the prompts from
 ``randint`` with the same key, as in the reference, both bit for bit;
-the prefill runs every layer's attention through the flash kernel (B9)
-on ``cuda`` (zamba2's shared attention once per use); the K/V caches
-are widened by ``--gen`` after it, and Mamba2's conv and SSM states
+so does a cross-attention config's source (``normal`` of (batch,
+``xattn_source_len``, the encoder's width or ``xattn_source_dim``): the
+stub frontend's frame or patch embeddings, which the encoder, if any,
+runs over once in the prefill). The prefill runs every causal
+self-attention layer through the flash kernel (B9) on ``cuda``
+(zamba2's shared attention once per use; the encoder and the
+cross-attention take the plain path, as in the reference); the
+self-attention K/V caches are widened by ``--gen`` after it (the cross
+K/V stay as the prefill left them), and Mamba2's conv and SSM states
 carried from the prefill into each decode step. Prints the
 reference's two lines (``prefill ... tok/s``, ``sample: [...]``).
 """
@@ -223,35 +229,53 @@ def serve_gnn_driver(args, built=None):
     return report
 
 
-def build_lm(args, num_layers=None):
+def build_lm(args, num_layers=None, cfg=None):
     """Config, weights and prompts of one LM serving run: the training
-    launcher's ``build_lm`` and the prompts from the same key, as the
-    reference does."""
+    launcher's ``build_lm`` (``cfg``: a config to use instead of
+    ``--arch``'s) and the prompts from the same key, as the reference
+    does."""
     from repro_torch.launch import train
 
-    cfg, params = train.build_lm(args, num_layers)
+    cfg, params = train.build_lm(args, num_layers, cfg)
     prompts = rng_lib.randint(rng_lib.key(args.seed),
                               (args.batch, args.prompt_len), 0, cfg.vocab,
                               device=args.device)
     return cfg, params, prompts
 
 
+def source_frames(cfg, batch: int, seed: int, device):
+    """The cross-attention source of a serving run, the reference's
+    ``normal(key(seed), (batch, xattn_source_len, dim))`` with ``dim``
+    the train launcher's ``source_dim``; None for a config without
+    cross-attention."""
+    from repro_torch.launch import train
+
+    if not cfg.xattn_source_len:
+        return None
+    return rng_lib.normal(rng_lib.key(seed), (batch, cfg.xattn_source_len,
+                                              train.source_dim(cfg)),
+                          device=device)
+
+
 def serve_lm(args, built=None):
-    """Prefill the prompts, widen the cache by ``--gen``, decode ``--gen``
-    greedy tokens (the first from the prefill's logits). Prints the
-    reference's two lines and returns the run's numbers and tensors:
-    the tokens (B, gen), the prefill's last logits, the final cache, and
-    the host-clock seconds of the prefill and of the decode loop (each
-    ending in a synchronise on the card)."""
+    """Prefill the prompts (with :func:`source_frames` as the
+    cross-attention source, if the config has one), widen the cache by
+    ``--gen``, decode ``--gen`` greedy tokens (the first from the
+    prefill's logits). Prints the reference's two lines and returns the
+    run's numbers and tensors: the tokens (B, gen), the prefill's last
+    logits, the final cache, and the host-clock seconds of the prefill
+    and of the decode loop (each ending in a synchronise on the card)."""
     from repro_torch.models.transformer import lm, stack
 
     cfg, params, prompts = built or build_lm(args)
     B, P, G = args.batch, args.prompt_len, args.gen
+    xsource = source_frames(cfg, B, args.seed, prompts.device)
     sync = (torch.cuda.synchronize if prompts.device.type == "cuda"
             else (lambda: None))
     sync()
     t0 = time.perf_counter()
-    last_logits, cache = stack.prefill(params, prompts, cfg)
+    last_logits, cache = stack.prefill(params, prompts, cfg, xsource=xsource)
+    del xsource
     cache = stack.widen_cache(cache, G)
     sync()
     t_prefill = time.perf_counter() - t0

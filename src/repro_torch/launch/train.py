@@ -187,10 +187,12 @@ def train_report(ds, cfg, evaluate: bool = True):
     return report, out
 
 
-def build_lm(args, num_layers=None):
+def build_lm(args, num_layers=None, cfg=None):
     """Config and initial parameters of one LM run, training or serving
-    (the reference's ``init_params(key(seed))``). ``num_layers`` cuts
-    the depth (a multiple of the arch's pattern) and keeps the width."""
+    (the reference's ``init_params(key(seed))``). ``cfg`` replaces
+    ``--arch``'s registered config (an encoder-decoder built by the
+    caller: no registered arch has one); ``num_layers`` cuts the depth
+    (a multiple of the pattern) and keeps the width."""
     import dataclasses
 
     from repro_torch import configs as cfgreg
@@ -198,7 +200,8 @@ def build_lm(args, num_layers=None):
     from repro_torch.core import rng as rng_lib
     from repro_torch.models.transformer import stack
 
-    cfg = cfgreg.get_config(args.arch, dtype="float32")
+    if cfg is None:
+        cfg = cfgreg.get_config(args.arch, dtype="float32")
     if args.reduce:
         cfg = reduce_cfg(cfg)
     if num_layers is not None:
@@ -207,9 +210,15 @@ def build_lm(args, num_layers=None):
                                   device=args.device)
 
 
-def train_lm(args, built=None):
+def train_lm(args, built=None, frames=None):
     """``--steps`` Adam steps of the LM from ``built`` (``build_lm``'s,
-    updated in place) on the bigram stream of ``--seed``. Prints the
+    updated in place) on the bigram stream of ``--seed``; a config with
+    cross-attention gets ``frames`` as its source on every step, by
+    default the reference's zeros of (batch, ``xattn_source_len``,
+    :func:`source_dim`). Zero frames give a deep layernorm encoder a
+    gradient that overflows (a zero-variance row's norm scales its
+    gradient by 1/sqrt(eps), once a norm; ROADMAP C7), so a caller
+    training an encoder of more than a few layers passes frames. Prints the
     reference's lines; returns the report with the run's losses, each
     step's host-clock seconds (each ends in the loss's read, a sync on
     the card), the parameters and the optimizer state."""
@@ -222,12 +231,17 @@ def train_lm(args, built=None):
     opt = lm.init_opt_state(params, opt_cfg)
     step = lm.make_train_step(cfg, opt_cfg)
     stream = BigramStream(cfg.vocab, seed=args.seed)
+    extra = {}
+    if cfg.xattn_source_len:
+        extra["xsource"] = frames if frames is not None else torch.zeros(
+            (args.batch, cfg.xattn_source_len, source_dim(cfg)),
+            dtype=getattr(torch, cfg.dtype), device=args.device)
     losses, seconds = [], []
     for i in range(args.steps):
         t0 = time.perf_counter()
         toks, labels = stream.batch(args.batch, args.seq, device=args.device)
         params, opt, m = step(params, opt, {"tokens": toks,
-                                            "labels": labels})
+                                            "labels": labels, **extra})
         losses.append(float(m["loss"]))
         seconds.append(time.perf_counter() - t0)
         if (i + 1) % 10 == 0:
@@ -236,6 +250,15 @@ def train_lm(args, built=None):
     print(json.dumps(report))
     return {**report, "losses": losses, "step_seconds": seconds,
             "params": params, "opt_state": opt}
+
+
+def source_dim(cfg) -> int:
+    """The width of a cross-attention config's source: the encoder's
+    ``d_model`` (its input), else ``xattn_source_dim``, else
+    ``d_model``."""
+    if cfg.encoder is not None:
+        return cfg.encoder.d_model
+    return cfg.xattn_source_dim or cfg.d_model
 
 
 def _no_tf32():

@@ -9,10 +9,13 @@ Attention on the full-sequence paths (:func:`attn_apply`, and the
 prefill of ``stack``) takes a graph-ops style backend: ``"cuda"`` runs
 every causal self-attention through the flash kernel (B9,
 ``kernels/flash_attention``), ``"eager"`` through :func:`_attend_flags`,
-the reference's plain path. One-token decode (:func:`attn_decode`) is
-plain torch on both, as in the reference. MoE and Mamba2 are plain torch
-on both backends: the reference has no kernel for them. Cross-attention
-is not ported yet (``ROADMAP.md``).
+the reference's plain path. Cross-attention (``kind="xattn"``: K/V from
+the encoder's output or another source, no rotary, no mask) and an
+encoder's self-attention (``cfg.is_encoder``: no causal mask) are not
+causal, so they take the plain path on both backends, as the
+reference's ``use_flash`` does. One-token decode (:func:`attn_decode`)
+is plain torch on both, as in the reference. MoE and Mamba2 are plain
+torch on both backends: the reference has no kernel for them.
 
 The math runs in float32 for float32 and bfloat16 inputs, as the
 reference's, and in float64 for float64 inputs (the fp64 yardstick of
@@ -31,11 +34,6 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.transformer.config import MoEConfig, TransformerConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (see ROADMAP.md §A)")
 
 
 def _dtype(cfg: TransformerConfig) -> torch.dtype:
@@ -109,13 +107,17 @@ def rope(x, positions, theta, fraction=1.0):
 # attention
 # ---------------------------------------------------------------------------
 
-def attn_init(key, cfg: TransformerConfig, device="cpu"):
+def attn_init(key, cfg: TransformerConfig, cross: bool = False,
+              device="cpu"):
+    """One attention block's parameters; ``cross``: ``wk``/``wv`` take
+    the source's width (``xattn_source_dim``, else ``d_model``)."""
     ks = rng_lib.split(key, 6)
     dt = _dtype(cfg)
+    kv_in = (cfg.xattn_source_dim or cfg.d_model) if cross else cfg.d_model
     p = {
         "wq": dense_init(ks[0], cfg.d_model, cfg.q_dim, dt, device=device),
-        "wk": dense_init(ks[1], cfg.d_model, cfg.kv_dim, dt, device=device),
-        "wv": dense_init(ks[2], cfg.d_model, cfg.kv_dim, dt, device=device),
+        "wk": dense_init(ks[1], kv_in, cfg.kv_dim, dt, device=device),
+        "wv": dense_init(ks[2], kv_in, cfg.kv_dim, dt, device=device),
         "wo": dense_init(ks[3], cfg.q_dim, cfg.d_model, dt, device=device),
         "pre_norm": norm_init(cfg, device=device),
     }
@@ -221,17 +223,23 @@ def self_attention(q, k, v, cfg: TransformerConfig, *, causal, window,
 
 
 def attn_apply(p, x, cfg: TransformerConfig, *, kind: str = "attn",
-               positions=None, backend: str = "eager"):
-    """Training/prefill path. x: (B,S,d)."""
+               positions=None, xsource=None, backend: str = "eager"):
+    """Training/prefill path. x: (B,S,d). ``kind="xattn"``: K/V from
+    ``xsource`` (B, Sx, source width), no rotary, no mask."""
     B, S, _ = x.shape
     h = norm_apply(p["pre_norm"], x, cfg)
-    q, k, v = _qkv(p, h, h, cfg)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None]
-    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    cross = kind == "xattn"
+    if cross and xsource is None:
+        raise ValueError(f"{cfg.name}: a cross-attention block needs "
+                         "xsource")
+    q, k, v = _qkv(p, h, xsource if cross else h, cfg)
+    if not cross:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None]
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     window = cfg.window if kind == "attn_local" else None
-    out = self_attention(q, k, v, cfg, causal=not cfg.is_encoder,
+    out = self_attention(q, k, v, cfg, causal=not (cross or cfg.is_encoder),
                          window=window, backend=backend)
     out = out.reshape(B, S, cfg.q_dim) @ p["wo"]
     if cfg.post_norms:
@@ -240,25 +248,36 @@ def attn_apply(p, x, cfg: TransformerConfig, *, kind: str = "attn",
 
 
 def attn_decode(p, x, cache, pos: int, cfg: TransformerConfig, *,
-                kind="attn"):
+                kind="attn", xkv=None):
     """One-token decode. x: (B,1,d); cache: {"k","v"}: (B,Smax,Hkv,hd);
     pos: the current position. Writes the new K/V into the cache in
     place (the reference returns an updated copy) and returns
-    (x + attention, cache)."""
+    (x + attention, cache). ``kind="xattn"``: only q is projected, K/V
+    are the prefill's cross K/V ``xkv`` (no mask) and ``cache`` is
+    returned as it came."""
     B = x.shape[0]
     h = norm_apply(p["pre_norm"], x, cfg)
-    q, k_new, v_new = _qkv(p, h, h, cfg)
-    posv = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    q = rope(q, posv, cfg.rope_theta, cfg.rope_fraction)
-    k_new = rope(k_new, posv, cfg.rope_theta, cfg.rope_fraction)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    k, v = cache["k"], cache["v"]
-    kpos = torch.arange(k.shape[1], device=x.device)[None, None]  # (1,1,Sk)
-    m = kpos <= pos
-    if kind == "attn_local" and cfg.window is not None:
-        m = m & (pos - kpos < cfg.window)
-    out = _attend_direct(q, k, v, cfg, m[:, :, None])
+    if kind == "xattn":
+        q = h @ p["wq"]
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        q = q.reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        k, v = xkv
+        mask = None
+    else:
+        q, k_new, v_new = _qkv(p, h, h, cfg)
+        posv = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+        q = rope(q, posv, cfg.rope_theta, cfg.rope_fraction)
+        k_new = rope(k_new, posv, cfg.rope_theta, cfg.rope_fraction)
+        cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+        kpos = torch.arange(k.shape[1], device=x.device)[None, None]
+        m = kpos <= pos                                       # (1,1,Sk)
+        if kind == "attn_local" and cfg.window is not None:
+            m = m & (pos - kpos < cfg.window)
+        mask = m[:, :, None]
+    out = _attend_direct(q, k, v, cfg, mask)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"]
     if cfg.post_norms:
         out = norm_apply(p["post_norm"], out, cfg)

@@ -35,7 +35,11 @@ def cross_entropy(logits, labels):
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: TransformerConfig,
             backend: Optional[str] = None):
-    logits = stack.forward(params, batch["tokens"], cfg, backend=backend)
+    """The mean cross entropy of ``batch``'s ``tokens`` against its
+    ``labels``; ``batch["xsource"]``, where present, is the
+    cross-attention source (or the encoder's input)."""
+    logits = stack.forward(params, batch["tokens"], cfg,
+                           xsource=batch.get("xsource"), backend=backend)
     return cross_entropy(logits.float(), batch["labels"])
 
 
@@ -76,7 +80,10 @@ def make_grad_fn(cfg: TransformerConfig, backend: Optional[str] = None,
     num_microbatches > 1`` the batch splits along axis 0 into n slices,
     taken in turn; the gradients accumulate as ``acc + g / n`` in
     ``accum_dtype`` and the loss as ``loss / n``, the reference's order.
-    The reference's ``unroll_microbatches`` (a switch for XLA's cost
+    Every entry of the batch (``xsource`` too) splits the same way. A
+    tensor the loss does not reach (an encoder's unused token
+    embedding) gets a zero gradient, as ``jax.grad`` gives it. The
+    reference's ``unroll_microbatches`` (a switch for XLA's cost
     analysis, which counts a scan's body once) has no counterpart: this
     loop is always unrolled."""
     n = num_microbatches
@@ -87,8 +94,11 @@ def make_grad_fn(cfg: TransformerConfig, backend: Optional[str] = None,
                   for k, t in flatten_params(params).items()}
         loss = loss_fn(unflatten_params(leaves, params), batch, cfg,
                        backend=backend)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        return loss.detach(), {
+            k: torch.zeros_like(t) if g is None else g
+            for (k, t), g in zip(leaves.items(), grads)}
 
     def grad_fn(params, batch):
         if n == 1:
@@ -120,7 +130,10 @@ def make_train_step(cfg: TransformerConfig, opt_cfg: adam.AdamConfig,
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, the reference's, with ``metrics["loss"]`` and (with
     clipping) ``metrics["grad_norm"]``. ``batch`` holds ``tokens`` and
-    ``labels`` (B, S); ``opt_state`` comes from :func:`init_opt_state`.
+    ``labels`` (B, S), and for a config with cross-attention
+    ``xsource`` (B, Sx, width); ``opt_state`` comes from
+    :func:`init_opt_state`. An encoder's parameters (``params["encoder"]``)
+    are trained with the rest.
     ``params`` and ``opt_state`` are updated in place and returned.
 
     ``backend`` replaces the reference's ``use_flash``: ``"cuda"`` runs
@@ -145,7 +158,8 @@ def make_train_step(cfg: TransformerConfig, opt_cfg: adam.AdamConfig,
 
 def make_prefill_step(cfg: TransformerConfig, backend: Optional[str] = None):
     def prefill_step(params, batch):
-        return stack.prefill(params, batch["tokens"], cfg, backend=backend)
+        return stack.prefill(params, batch["tokens"], cfg,
+                             xsource=batch.get("xsource"), backend=backend)
     return prefill_step
 
 

@@ -1,19 +1,28 @@
 """Layer-stack assembly (twin of ``repro.models.transformer.stack``):
 init / forward / prefill / decode over the repeating ``layer_pattern``:
-attention (``attn``, ``attn_local``, ``attn_global``), Mamba2
-(``mamba``) and zamba2's shared attention (``shared_attn``), each
-followed by its mixer (``mlp``, ``moe`` or none).
+attention (``attn``, ``attn_local``, ``attn_global``), cross-attention
+(``xattn``), Mamba2 (``mamba``) and zamba2's shared attention
+(``shared_attn``), each followed by its mixer (``mlp``, ``moe`` or
+none). An encoder-decoder (whisper) carries its encoder's config in
+``cfg.encoder`` (``is_encoder``: no causal mask, no decode step):
+:func:`encode` runs it over ``xsource``, the precomputed frame
+embeddings (the frontend is a stub, as in the reference), and its output
+is every ``xattn`` block's source. Without an encoder ``xsource`` is
+the source itself (a VLM's patch embeddings).
 
 The layers run as a Python loop over the pattern's repeats (no scan).
 Parameters are ``{"embed", "final_norm", ["lm_head"], "layers",
-["shared"]}`` with ``layers[i][r]`` the parameter dict of pattern entry
-``i`` in repeat ``r``; ``shared`` is zamba2's one ``{"attn", "mlp"}``
-set, used by every ``shared_attn`` entry (its gradient sums over the
-uses). :func:`params_from_jax` carries the reference's parameters
+["shared"], ["encoder"]}`` with ``layers[i][r]`` the parameter dict of
+pattern entry ``i`` in repeat ``r``; ``shared`` is zamba2's one
+``{"attn", "mlp"}`` set, used by every ``shared_attn`` entry (its
+gradient sums over the uses); ``encoder`` is the encoder's own tree of
+this layout. :func:`params_from_jax` carries the reference's parameters
 (either of its layouts) into it. The decode cache is the reference's:
-per pattern entry ``{"k", "v"}`` of (repeats, B, S, Hkv, hd), or
-Mamba2's ``{"conv", "ssm"}`` of (repeats, B, d_conv - 1, conv_dim) and
-(repeats, B, heads, head_dim, d_state).
+per pattern entry ``{"k", "v"}`` of (repeats, B, S, Hkv, hd), the cross
+K/V ``{"xk", "xv"}`` of (repeats, B, source length, Hkv, hd), filled by
+the prefill and read by every decode step, or Mamba2's ``{"conv",
+"ssm"}`` of (repeats, B, d_conv - 1, conv_dim) and (repeats, B, heads,
+head_dim, d_state).
 
 With ``cfg.remat`` and gradients on, :func:`forward` runs each repeat's
 group under ``torch.utils.checkpoint`` (the reference's
@@ -22,10 +31,12 @@ the backward, so each attention layer runs twice a step. The
 reference's ``remat_policy="dots"`` (keep the products' outputs) saves
 memory traffic, not results; it is treated as ``"full"`` here.
 
-``backend`` selects the attention of the full-sequence paths
-(``forward``, ``prefill``): ``"cuda"`` the flash kernel, ``"eager"`` the
-plain version; ``None``/``"auto"`` resolves by the tokens' device.
-Cross-attention and encoders are not ported yet.
+``backend`` selects the causal self-attention of the full-sequence
+paths (``forward``, ``prefill``): ``"cuda"`` the flash kernel,
+``"eager"`` the plain version; ``None``/``"auto"`` resolves by the
+tokens' device. Cross-attention and the encoder are not causal and run
+the plain version on both, as in the reference. The encoder runs with no
+remat, as the reference's ``encode``.
 """
 from __future__ import annotations
 
@@ -41,15 +52,16 @@ from repro_torch.models.transformer.config import TransformerConfig
 from repro_torch.ops.backend import resolve_backend
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
-KINDS = ATTN_KINDS + ("mamba", "shared_attn")
+KINDS = ATTN_KINDS + ("xattn", "mamba", "shared_attn")
 
 
-def _check_ported(cfg: TransformerConfig) -> None:
+def _check_kinds(cfg: TransformerConfig) -> None:
     for kind in cfg.layer_pattern:
         if kind not in KINDS:
-            raise L.not_ported(f"the {kind!r} block of {cfg.name}")
-    if cfg.encoder is not None or cfg.is_encoder:
-        raise L.not_ported(f"the encoder of {cfg.name}")
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r} "
+                             f"(known: {', '.join(KINDS)})")
+    if cfg.encoder is not None:
+        _check_kinds(cfg.encoder)
 
 
 def _entry_init(key, cfg: TransformerConfig, kind: str, mixer: str, device):
@@ -59,7 +71,8 @@ def _entry_init(key, cfg: TransformerConfig, kind: str, mixer: str, device):
     elif kind == "shared_attn":
         p["mix"] = {}  # parameters live unstacked in params["shared"]
     else:
-        p["mix"] = L.attn_init(rng_lib.fold_in(key, 1), cfg, device=device)
+        p["mix"] = L.attn_init(rng_lib.fold_in(key, 1), cfg,
+                               cross=kind == "xattn", device=device)
     if mixer == "mlp":
         p["ffn"] = L.mlp_init(rng_lib.fold_in(key, 2), cfg, device=device)
     elif mixer == "moe":
@@ -73,8 +86,9 @@ def init_params(key, cfg: TransformerConfig, device="cpu") -> Dict[str, Any]:
     ``r`` drawn from ``split(ek, repeats)[r]`` when ``cfg.scan_layers``
     (the reference vmaps over those keys) and from ``fold_in(ek, r)``
     otherwise; zamba2's shared attention from ``keys[3]`` and its MLP
-    from ``keys[4]``. Every draw is bit for bit the reference's."""
-    _check_ported(cfg)
+    from ``keys[4]``; the encoder's whole tree from ``keys[5]``. Every
+    draw is bit for bit the reference's."""
+    _check_kinds(cfg)
     dt = L._dtype(cfg)
     keys = rng_lib.split(key, 8)
     embed = rng_lib.normal(keys[0], (cfg.vocab, cfg.d_model), device=device)
@@ -96,6 +110,8 @@ def init_params(key, cfg: TransformerConfig, device="cpu") -> Dict[str, Any]:
         params["shared"] = {
             "attn": L.attn_init(keys[3], cfg, device=device),
             "mlp": L.mlp_init(keys[4], cfg, device=device)}
+    if cfg.encoder is not None:
+        params["encoder"] = init_params(keys[5], cfg.encoder, device=device)
     return params
 
 
@@ -103,8 +119,9 @@ def params_from_jax(params_np, cfg: TransformerConfig, device="cpu"):
     """The reference's parameters, as nested dicts/lists of numpy arrays,
     in the port's layout. Takes both of the reference's layouts of
     ``layers``: per pattern entry a dict of leaves stacked over repeats
-    (``scan_layers=True``) or a list of per-repeat dicts."""
-    _check_ported(cfg)
+    (``scan_layers=True``) or a list of per-repeat dicts; the encoder's
+    tree (``"encoder"``) by the encoder's config."""
+    _check_kinds(cfg)
 
     def conv(tree, r=None):
         if isinstance(tree, dict):
@@ -112,7 +129,11 @@ def params_from_jax(params_np, cfg: TransformerConfig, device="cpu"):
         a = np.asarray(tree)
         return torch.from_numpy(np.array(a if r is None else a[r])).to(device)
 
-    out = {k: conv(v) for k, v in params_np.items() if k != "layers"}
+    out = {k: conv(v) for k, v in params_np.items()
+           if k not in ("layers", "encoder")}
+    if cfg.encoder is not None:
+        out["encoder"] = params_from_jax(params_np["encoder"], cfg.encoder,
+                                         device)
     out["layers"] = [
         [conv(e) for e in entry] if isinstance(entry, (list, tuple))
         else [conv(entry, r) for r in range(cfg.repeats)]
@@ -148,13 +169,15 @@ def _mixer(p, x, cfg: TransformerConfig, mixer: str):
 
 
 def _apply_entry(p, x, cfg: TransformerConfig, kind, mixer, shared,
-                 backend):
+                 xsource, backend):
     if kind == "mamba":
         x, _ = L.mamba_apply(p["mix"], x, cfg)
     elif kind == "shared_attn":
         x = L.attn_apply(shared["attn"], x, cfg, kind="attn",
                          backend=backend)
         x = L.mlp_apply(shared["mlp"], x, cfg)
+    elif kind == "xattn":
+        x = L.attn_apply(p["mix"], x, cfg, kind="xattn", xsource=xsource)
     else:
         x = L.attn_apply(p["mix"], x, cfg, kind=kind, backend=backend)
     return _mixer(p, x, cfg, mixer)
@@ -180,18 +203,43 @@ def logits_head(params, x, cfg: TransformerConfig):
     return logits.to(L._DTYPES[cfg.logit_dtype])
 
 
-def forward(params, tokens, cfg: TransformerConfig,
+def encode(params, x, cfg: TransformerConfig):
+    """The encoder stack over precomputed frame/patch embeddings (the
+    reference's stub frontend): x (B, N, d) -> (B, N, d), ending in the
+    encoder's ``final_norm``. No logits head; its attention is not
+    causal (``cfg.is_encoder``), so it runs the plain path on every
+    backend, as the reference's ``use_flash=False``."""
+    shared = params.get("shared")
+    for r in range(cfg.repeats):
+        for i, kind in enumerate(cfg.layer_pattern):
+            x = _apply_entry(params["layers"][i][r], x, cfg, kind,
+                             cfg.mixer_for(i), shared, None, "eager")
+    return L.norm_apply(params["final_norm"], x, cfg)
+
+
+def _resolve_xsource(params, cfg: TransformerConfig, xsource):
+    """Encoder-decoder (whisper): the encoder over the frame embeddings
+    gives the decoder's cross-attention source; otherwise ``xsource`` is
+    the source."""
+    if cfg.encoder is not None and xsource is not None:
+        return encode(params["encoder"], xsource, cfg.encoder)
+    return xsource
+
+
+def forward(params, tokens, cfg: TransformerConfig, xsource=None,
             backend: Optional[str] = None):
-    """tokens: integer (B, S) -> logits (B, S, V)."""
-    _check_ported(cfg)
+    """tokens: integer (B, S) -> logits (B, S, V). ``xsource``: the
+    cross-attention source (B, Sx, width), or the encoder's input."""
+    _check_kinds(cfg)
     backend = resolve_backend(backend, tokens.device)
     shared = params.get("shared")
+    xsource = _resolve_xsource(params, cfg, xsource)
     x = embed_tokens(params, tokens, cfg)
 
     def group_fn(x, r):
         for i, kind in enumerate(cfg.layer_pattern):
             x = _apply_entry(params["layers"][i][r], x, cfg, kind,
-                             cfg.mixer_for(i), shared, backend)
+                             cfg.mixer_for(i), shared, xsource, backend)
         return x
 
     remat = cfg.remat and torch.is_grad_enabled() and _needs_grad(params)
@@ -209,11 +257,14 @@ def forward(params, tokens, cfg: TransformerConfig,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
-               device="cpu") -> List[Dict[str, torch.Tensor]]:
+               device="cpu", source_len: Optional[int] = None
+               ) -> List[Dict[str, torch.Tensor]]:
     """Zero caches, one per pattern entry, stacked over repeats: K/V
-    ``{"k", "v"}`` of (repeats, B, max_seq, Hkv, hd), or Mamba2's
+    ``{"k", "v"}`` of (repeats, B, max_seq, Hkv, hd), the cross K/V
+    ``{"xk", "xv"}`` of (repeats, B, source_len, Hkv, hd)
+    (``source_len`` defaults to ``cfg.xattn_source_len``), or Mamba2's
     ``{"conv", "ssm"}`` states."""
-    _check_ported(cfg)
+    _check_kinds(cfg)
     dt = L._dtype(cfg)
     out = []
     for kind in cfg.layer_pattern:
@@ -222,19 +273,22 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
             out.append({n: torch.zeros((cfg.repeats,) + tuple(t.shape),
                                        dtype=t.dtype, device=device)
                         for n, t in one.items()})
-        else:
-            shape = (cfg.repeats, batch, max_seq, cfg.n_kv_heads,
-                     cfg.head_dim)
-            out.append({"k": torch.zeros(shape, dtype=dt, device=device),
-                        "v": torch.zeros(shape, dtype=dt, device=device)})
+            continue
+        names, seq = ("k", "v"), max_seq
+        if kind == "xattn":
+            names = ("xk", "xv")
+            seq = cfg.xattn_source_len if source_len is None else source_len
+        shape = (cfg.repeats, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+        out.append({n: torch.zeros(shape, dtype=dt, device=device)
+                    for n in names})
     return out
 
 
 def widen_cache(cache, extra: int):
-    """The cache with ``extra`` zero positions appended to every K/V
-    (room for the tokens to generate); the Mamba2 states have no
-    sequence axis and stay as they are. Each entry's old tensors are
-    freed as it goes."""
+    """The cache with ``extra`` zero positions appended to every
+    self-attention K/V (room for the tokens to generate); the cross K/V
+    (whatever its length) and the Mamba2 states stay as they are. Each
+    entry's old tensors are freed as it goes."""
     out = []
     for entry in cache:
         out.append({n: (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, extra))
@@ -252,8 +306,8 @@ def _prefill_attention(mix, x, cfg: TransformerConfig, *, window, positions,
     q, k, v = L._qkv(mix, h, h, cfg)
     q = L.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = L.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    out = L.self_attention(q, k, v, cfg, causal=True, window=window,
-                           backend=backend)
+    out = L.self_attention(q, k, v, cfg, causal=not cfg.is_encoder,
+                           window=window, backend=backend)
     del q, h
     out = out.reshape(B, S, cfg.q_dim) @ mix["wo"]
     if post_norm:
@@ -261,18 +315,37 @@ def _prefill_attention(mix, x, cfg: TransformerConfig, *, window, positions,
     return x + out, k, v
 
 
-def prefill(params, tokens, cfg: TransformerConfig,
+def _cross_kv(mix, xsource, cfg: TransformerConfig):
+    """The cross K/V a prefill caches for the decode steps.
+
+    C6 (``ROADMAP.md`` §C): the reference caches ``xsource @ wk`` and
+    ``xsource @ wv`` without ``bk``/``bv``, while its forward adds them
+    (``_qkv``); with nonzero biases its decode disagrees with its
+    forward. The port mirrors it here, and only here, so that its
+    answers stay the reference's: adding the biases is this one line."""
+    B = xsource.shape[0]
+    shape = (B, -1, cfg.n_kv_heads, cfg.head_dim)
+    return (xsource @ mix["wk"]).reshape(shape), \
+        (xsource @ mix["wv"]).reshape(shape)
+
+
+def prefill(params, tokens, cfg: TransformerConfig, xsource=None,
             backend: Optional[str] = None):
     """Full-sequence forward that also fills the decode caches. Returns
-    (last_logits (B, V), cache). On ``cuda`` every attention layer, the
-    shared one's uses included, is one launch of the flash kernel."""
-    _check_ported(cfg)
+    (last_logits (B, V), cache). On ``cuda`` every causal self-attention
+    layer, the shared one's uses included, is one launch of the flash
+    kernel; the encoder (run once, over ``xsource``) and the
+    cross-attention blocks take the plain path."""
+    _check_kinds(cfg)
     backend = resolve_backend(backend, tokens.device)
     B, S = tokens.shape
     shared = params.get("shared")
+    xsource = _resolve_xsource(params, cfg, xsource)
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(S, device=tokens.device)[None]
-    cache = init_cache(cfg, B, S, device=tokens.device)
+    cache = init_cache(cfg, B, S, device=tokens.device,
+                       source_len=None if xsource is None
+                       else xsource.shape[1])
     for r, i, kind, p in _layers(params, cfg):
         c = cache[i]
         if kind == "mamba":
@@ -286,6 +359,9 @@ def prefill(params, tokens, cfg: TransformerConfig,
                 shared["attn"], x, cfg, window=None, positions=positions,
                 backend=backend, post_norm=False)
             x = L.mlp_apply(shared["mlp"], x, cfg)
+        elif kind == "xattn":
+            x = L.attn_apply(p["mix"], x, cfg, kind="xattn", xsource=xsource)
+            c["xk"][r], c["xv"][r] = _cross_kv(p["mix"], xsource, cfg)
         else:
             window = cfg.window if kind == "attn_local" else None
             x, c["k"][r], c["v"][r] = _prefill_attention(
@@ -300,7 +376,7 @@ def decode_step(params, tokens, cache, pos: int, cfg: TransformerConfig):
     """One decode step. tokens: (B, 1); pos: the write position (attends
     to cache[<= pos]). Updates ``cache`` in place and returns
     (logits (B, V), cache)."""
-    _check_ported(cfg)
+    _check_kinds(cfg)
     shared = params.get("shared")
     x = embed_tokens(params, tokens, cfg)
     for r, i, kind, p in _layers(params, cfg):
@@ -314,6 +390,9 @@ def decode_step(params, tokens, cache, pos: int, cfg: TransformerConfig):
         elif kind == "shared_attn":
             x, _ = L.attn_decode(shared["attn"], x, entry, pos, cfg)
             x = L.mlp_apply(shared["mlp"], x, cfg)
+        elif kind == "xattn":
+            x, _ = L.attn_decode(p["mix"], x, None, pos, cfg, kind="xattn",
+                                 xkv=(entry["xk"], entry["xv"]))
         else:
             x, _ = L.attn_decode(p["mix"], x, entry, pos, cfg, kind=kind)
         x = _mixer(p, x, cfg, cfg.mixer_for(i))

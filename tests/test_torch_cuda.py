@@ -2042,3 +2042,76 @@ def test_lm_train_step_remat_matches_no_remat(cuda_device, arch, layers):
         rel = ((t.double() - pn[name].double()).norm()
                / pn[name].double().norm().clamp(min=1e-30)).item()
         assert rel <= 1e-4, name
+
+
+def _encdec_cfg():
+    """A reduced encoder-decoder of whisper's shape: a 2-layer
+    ``is_encoder`` stack, a decoder of ``("attn", "xattn")`` x 2, GQA 4/2,
+    ``qkv_bias``, layernorm, gelu, 40 frames, remat on."""
+    from repro_torch.models.transformer.config import TransformerConfig
+    common = dict(d_model=64, n_heads=4, head_dim=16, d_ff=96, vocab=257,
+                  qkv_bias=True, norm="layernorm", activation="gelu",
+                  gated_mlp=False, dtype="float32", remat=True)
+    enc = TransformerConfig(name="enc", num_layers=2, n_kv_heads=4,
+                            layer_pattern=("attn",), is_encoder=True,
+                            **common)
+    return TransformerConfig(name="encdec", num_layers=4, n_kv_heads=2,
+                             layer_pattern=("attn", "xattn"),
+                             mixers=("none", "mlp"), encoder=enc,
+                             xattn_source_len=40, xattn_source_dim=64,
+                             **common)
+
+
+@pytest.mark.cuda
+def test_encdec_prefill_and_train_step_match_eager(cuda_device):
+    """An encoder-decoder on the ``cuda`` backend against ``eager`` on
+    the card: B9 runs only the decoder's causal self-attention (2
+    launches a prefill, 2 x 2 a remat train step; the encoder and the
+    cross-attention take the plain path); the prefill's logits and every
+    cache tensor (the cross K/V too) within rtol 1e-4 / atol 1e-5; one
+    train step's loss within 1e-5 relative and every parameter within
+    1e-3 relative L2, but the cross blocks' bk (a gradient 0 in exact
+    arithmetic, so Adam moves it along rounding noise), within 2 lr."""
+    from repro_torch.data.tokens import BigramStream
+    from repro_torch.models.transformer import lm, stack
+    cfg = _encdec_cfg()
+    params = stack.init_params(TR.key(0), cfg, device="cuda")
+    tokens = TR.randint(TR.key(0), (2, 120), 0, cfg.vocab, device="cuda")
+    xs = TR.normal(TR.key(1), (2, 40, 64), device="cuda")
+    want_logits, want_cache = stack.prefill(params, tokens, cfg, xsource=xs,
+                                            backend="eager")
+    fa.reset_launches()
+    logits, cache = stack.prefill(params, tokens, cfg, xsource=xs)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 2
+    torch.testing.assert_close(logits, want_logits, rtol=1e-4, atol=1e-5)
+    for got, want in zip(cache, want_cache):
+        assert sorted(got) == sorted(want)
+        for n in want:
+            torch.testing.assert_close(got[n], want[n], rtol=1e-4,
+                                       atol=1e-5)
+    opt_cfg = adam.AdamConfig(lr=1e-3)
+    toks, labels = BigramStream(cfg.vocab, seed=1).batch(2, 96,
+                                                         device="cuda")
+    batch = {"tokens": toks, "labels": labels, "xsource": xs}
+    runs = []
+    for backend in ("cuda", "eager"):
+        p = stack.init_params(TR.key(0), cfg, device="cuda")
+        opt = lm.init_opt_state(p, opt_cfg)
+        fa.reset_launches()
+        p, opt, m = lm.make_train_step(cfg, opt_cfg, backend=backend)(
+            p, opt, batch)
+        assert fa.LAUNCHES["flash_attention"] == (
+            4 if backend == "cuda" else 0)
+        runs.append((m["loss"].item(), lm.flatten_params(p)))
+    (lk, pk), (le, pe) = runs
+    assert abs(lk - le) <= 1e-5 * abs(le)
+    cross_bk = {f"layers/1/{r}/mix/bk" for r in range(cfg.repeats)}
+    assert any(n.startswith("encoder/layers/") for n in pk)
+    for name, t in pk.items():
+        if name in cross_bk:
+            assert (t - pe[name]).abs().max().item() <= 2e-3, name
+            continue
+        rel = ((t.double() - pe[name].double()).norm()
+               / pe[name].double().norm().clamp(min=1e-30)).item()
+        assert rel <= 1e-3, name

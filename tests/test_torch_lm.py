@@ -252,16 +252,26 @@ def test_masks_and_cache_specs_match_repro():
 
 
 def test_unported_blocks_say_so():
-    """Cross-attention and encoders are what the port still refuses (no
-    registered arch has either); every registered arch's blocks run
-    (``test_torch_mamba.py``, ``test_torch_moe.py``)."""
+    """Cross-attention and encoders, the last blocks the port refused,
+    now run: a cross-attention decoder, an encoder-decoder and an
+    encoder alone give finite logits (``test_torch_encdec.py`` holds
+    them to repro). What still raises: an unknown block kind, and the
+    ``cuda`` backend on CPU tensors."""
     base = treduce(tconfigs.get_config("gemma2-2b", dtype="float32"))
-    for cfg in (dataclasses.replace(base, layer_pattern=("attn", "xattn"),
-                                    xattn_source_len=24),
-                dataclasses.replace(base, encoder=base),
+    xattn = dataclasses.replace(base, layer_pattern=("attn", "xattn"),
+                                xattn_source_len=24)
+    tokens = torch.zeros(1, 4, dtype=torch.int64)
+    for cfg in (xattn,
+                dataclasses.replace(xattn, encoder=dataclasses.replace(
+                    base, is_encoder=True)),
                 dataclasses.replace(base, is_encoder=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TS.init_params(TR.key(0), cfg)
+        logits = TS.forward(TS.init_params(TR.key(0), cfg), tokens, cfg,
+                            xsource=torch.ones(1, 24, 64))
+        assert logits.shape == (1, 4, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="unknown block kind 'conv'"):
+        TS.init_params(TR.key(0), dataclasses.replace(
+            base, layer_pattern=("attn", "conv")))
     for arch in tconfigs.ARCHS:
         cfg = treduce(tconfigs.get_config(arch, dtype="float32"))
         TS.init_cache(cfg, 1, 4)

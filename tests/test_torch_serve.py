@@ -277,26 +277,34 @@ def test_cuda_is_the_default_device(samplers_):
 
 
 def test_unported_paths_say_so():
-    """What the port still refuses says so: an unknown sampler name, and
-    the LM blocks that are not ported, cross-attention (weighted graphs,
-    the async driver and every registered LM arch are ported:
+    """What the port refuses says so: an unknown sampler name, and an
+    unknown LM block kind. Every LM block of the reference is ported:
+    the LM workload serves a cross-attention config, the source drawn by
+    the launcher and its cross K/V kept at the source's length
+    (weighted graphs, the async driver and the LM blocks:
     tests/test_torch_weighted.py, tests/test_torch_serving_driver.py,
-    tests/test_torch_mamba.py and tests/test_torch_moe.py)."""
+    tests/test_torch_mamba.py, tests/test_torch_moe.py and
+    tests/test_torch_encdec.py)."""
     import dataclasses
     from repro_torch.launch import serve as tserve
+    from repro_torch.models.transformer import stack as tstack
     with pytest.raises(TS.UnknownSamplerError):
         TS.resolve("labor-one")
-    # the LM workload serves every registered arch; a cross-attention
-    # block says so
     args = tserve.parser().parse_args(
         SERVE_ARGS + ["--device", "cpu", "--workload", "lm", "--arch",
                       "mamba2-370m", "--reduce", "--prompt-len", "8",
                       "--gen", "2"])
-    cfg, params, prompts = tserve.build_lm(args)
-    xattn = dataclasses.replace(cfg, layer_pattern=("xattn",),
-                                num_layers=1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tserve.serve_lm(args, (xattn, params, prompts))
+    cfg, _, prompts = tserve.build_lm(args)
+    xattn = dataclasses.replace(cfg, layer_pattern=("mamba", "xattn"),
+                                mixers=("none", "none"), num_layers=2,
+                                xattn_source_len=5)
+    params = tstack.init_params(TR.key(args.seed), xattn)
+    out = tserve.serve_lm(args, (xattn, params, prompts))
+    assert out["tokens"].shape == (args.batch, 2)
+    assert out["cache"][1]["xk"].shape[2] == 5
+    unknown = dataclasses.replace(xattn, layer_pattern=("mamba", "conv"))
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tserve.serve_lm(args, (unknown, params, prompts))
 
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
