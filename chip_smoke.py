@@ -45,7 +45,12 @@ error exits non-zero:
      (a host clock over them with no sync), then each call's device ms
      (for the SpMM, segment_select and the edge softmax also in every
      round and by device operation; the edge softmax's trial has no
-     library side). With ``--kernels-only`` the script stops here;
+     library side). Every bound comes from ``launch/roofline.py``'s
+     work of the kernel's contract. hash_dedup's tuning candidates
+     (``ops/autotune.py``: one, the kernel's own table of 1.5 slots an
+     entry) run on layer 2's inputs, each bit for bit against a first
+     call on the same cached table and timed. With ``--kernels-only``
+     the script stops here;
   3. serve: ``--requests`` requests through ``repro_torch.launch.serve``'s
      synchronous path on products at ``--scale`` (0.25: 612,257
      vertices) with the paper's widths (100 features, hidden 256, 47
@@ -144,7 +149,10 @@ error exits non-zero:
      takes a minute of host time). ``MESH_STEPS`` steps of the launcher's
      batches, each followed by a flush, through
      ``launch/gnn_step.build_gnn_engine``: the single-device engine on
-     the card first, then world size 1 (an NCCL group of this process;
+     the card first (through ``launch/perf.measure_gnn``: its roofline
+     terms from the sampled blocks' live sizes, dominant term, ``mfu``
+     and measured step, with the card), then world size 1 (an NCCL group
+     of this process;
      counted path ``train mesh``; step 0's sampling half, the routing
      included, recomputed on the plain path, bit for bit), then world
      size 2 (two spawned ranks on this card in a gloo group over CUDA
@@ -230,6 +238,13 @@ error exits non-zero:
      held to the noise level; B9 2 x 4 launches a step; one step on
      batch 0 must lower batch 0's loss). ``--lm-only`` runs phase 1 and
      then phases 6-9 alone (no ``kernels`` or ``ok`` line).
+     In phases 6-9 each path's line carries the dry run's account
+     (``launch/dryrun.account`` of its config, batch and sequence:
+     parameters, gradients, Adam's moments, activations, cache) beside
+     its measured peak; the resident state (the parameters, and the
+     optimizer state or the cache the path holds) must not exceed the
+     peak. Each training path also prints ``launch/perf.measure_lm``'s
+     roofline terms and ``mfu`` for its measured warm step.
 
 The line before the last is the ``kernels`` JSON object: per kernel,
 ``launches_by_path`` holds its count on each counted path (serve, serve
@@ -263,11 +278,6 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
-# 3xTF32 on the tensor cores: the dense TF32 rate (495 TFLOP/s) over the
-# three products that keep an fp32 product near fp32 (B9)
-TF32X3_FLOP_PER_S = 495e12 / 3
 #: rounds of phase 2's trials (each kernel in ``trials`` against its
 #: library call)
 TRIAL_ROUNDS = 5
@@ -337,26 +347,30 @@ def same(name, a, b):
 class Record:
     """Per-kernel sums over the calls of one request. ``status``: a
     note on the kernel's design for the ``kernels`` line, or None.
-    ``flop_rate``: the card's peak for the kernel's operations (fp32
-    FMA, or 3xTF32 on the tensor cores, where the row also carries both
-    bounds)."""
+    ``peak``: the name of the card's peak for the kernel's operations in
+    ``launch/roofline.py`` (fp32 FMA, or 3xTF32 on the tensor cores,
+    where the row also carries both bounds)."""
 
     def __init__(self, name, route, source, replaces, status=None,
-                 flop_rate=FP32_FLOP_PER_S):
+                 peak="fp32"):
         self.row = dict(name=name, route=route, source=source,
                         replaces=replaces, status=status, launches=0,
                         launches_by_path={}, max_abs_err=0.0,
                         ms=0.0, plain_ms=0.0, bound_ms=0.0,
                         bound_by="bytes", library_ms=0.0)
-        self.flop_rate = flop_rate
+        self.peak = peak
         self.flops = 0.0
         self.flop_bound = 0.0
         self.byte_bound = 0.0
 
-    def add(self, ms, plain_ms, library_ms, nbytes, flops=0.0, err=0.0):
-        """Adds one call's times; returns them with its bound, for the
-        per-call line. ``library_ms`` None: no one PyTorch call computes
-        the same function."""
+    def add(self, ms, plain_ms, library_ms, work, err=0.0):
+        """Adds one call's times; returns them with its bound (from
+        ``work``, the call's ``roofline.Work``), for the per-call line.
+        ``library_ms`` None: no one PyTorch call computes the same
+        function."""
+        from repro_torch.launch import roofline as rl
+        nbytes, flops = work
+        rate = rl.PEAKS[self.peak]
         r = self.row
         r["ms"] += ms
         r["plain_ms"] += plain_ms
@@ -365,8 +379,8 @@ class Record:
         elif r["library_ms"] is not None:
             r["library_ms"] += library_ms
         r["max_abs_err"] = max(r["max_abs_err"], float(err))
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flop_ms = flops / self.flop_rate * 1e3
+        byte_ms = nbytes / rl.HBM_BW * 1e3
+        flop_ms = flops / rate * 1e3
         self.byte_bound += byte_ms
         self.flop_bound += flop_ms
         self.flops += flops
@@ -375,11 +389,11 @@ class Record:
                          else "operations")
         out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=max(byte_ms, flop_ms))
-        if self.flop_rate != FP32_FLOP_PER_S:
-            both = {"bound_ms_fp32_fma": (self.flops / FP32_FLOP_PER_S * 1e3,
-                                          flops / FP32_FLOP_PER_S * 1e3),
-                    "bound_ms_3xtf32": (self.flops / TF32X3_FLOP_PER_S * 1e3,
-                                        flops / TF32X3_FLOP_PER_S * 1e3)}
+        if self.peak != "fp32":
+            both = {"bound_ms_fp32_fma": (self.flops / rl.PEAK_FP32 * 1e3,
+                                          flops / rl.PEAK_FP32 * 1e3),
+                    "bound_ms_3xtf32": (self.flops / rl.PEAK_TF32X3 * 1e3,
+                                        flops / rl.PEAK_TF32X3 * 1e3)}
             for k, (total, call) in both.items():
                 r[k] = max(self.byte_bound, total)
                 out[k] = max(byte_ms, call)
@@ -391,6 +405,7 @@ def phase_kernels(engine, data, seeds, key, reps, records, trials):
     each layer of one request, then adversarial inputs. Appends each
     compact, hash_dedup and compact_perm call's (kernel, library) pair
     to ``trials``."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.core.interface import build_block
     from repro_torch.core.labor import layer_inclusion
     from repro_torch.kernels.frontier import ops as fk
@@ -428,7 +443,7 @@ def phase_kernels(engine, data, seeds, key, reps, records, trials):
             t = records["compact"].add(
                 cuda_ms(pair[0], reps),
                 cuda_ms(lambda: fr.compact(flags, cap), reps),
-                cuda_ms(pair[1], reps), nbytes=n + cap * 5 + 4)
+                cuda_ms(pair[1], reps), rl.compact(n, cap))
             emit({"phase": "kernels", "kernel": "compact", "layer": layer,
                   "E": flags.shape[0], "cap": cap, "live": n, **t})
 
@@ -453,10 +468,12 @@ def phase_kernels(engine, data, seeds, key, reps, records, trials):
             cuda_ms(pair[0], reps),
             cuda_ms(lambda: fr.hash_dedup(*args), reps),
             cuda_ms(pair[1], reps),
-            nbytes=n * 5 + S * 4 + new_cap * 4 + E * 4 + 5)
+            rl.hash_dedup(n, S, new_cap, E))
         emit({"phase": "kernels", "kernel": "hash_dedup", "layer": layer,
               "E": E, "S": S, "new_cap": new_cap, "live": n,
               "num_new": int(got.num_new), **t})
+        if layer == len(sampler.caps) - 1:
+            autotune_candidates(args, live, reps)
 
         pargs = (blk.src_slot, blk.edge_mask, caps.vertex_cap)
         got = fk.compact_perm(*pargs, live)
@@ -470,8 +487,7 @@ def phase_kernels(engine, data, seeds, key, reps, records, trials):
         t = records["compact_perm"].add(
             cuda_ms(pair[0], reps),
             cuda_ms(lambda: fr.compact_perm(*pargs), reps),
-            cuda_ms(pair[1], reps),
-            nbytes=n * 5 + E * 4)
+            cuda_ms(pair[1], reps), rl.compact_perm(n, E))
         emit({"phase": "kernels", "kernel": "compact_perm", "layer": layer,
               "E": E, "K": caps.vertex_cap, "live": n, **t})
         cur = blk.next_seeds
@@ -509,13 +525,26 @@ def phase_kernels(engine, data, seeds, key, reps, records, trials):
             cuda_ms(pair[0], reps),
             cuda_ms(lambda: sr.spmm_block_ref(*sargs), reps),
             cuda_ms(pair[1], reps),
-            nbytes=n * 13 + rows * F * 4 + blk.seed_cap * F * 4,
-            flops=2.0 * n * F, err=err)
+            rl.spmm(n, rows, blk.seed_cap, F), err=err)
         emit({"phase": "kernels", "kernel": "spmm", "layer": layer,
               "S": blk.seed_cap, "T": blk.next_cap, "F": F, "live": n,
               "live_rows": live_rows, "rows_past_last_key": past_last,
               "max_abs_err": err, **t})
     adversarial(fk, fr, sk, sr)
+
+
+def autotune_candidates(args, live, reps):
+    """hash_dedup's tuning candidates (``ops/autotune.py``: the kernel's
+    own table, 1.5 slots an entry) on one layer's inputs: each bit for
+    bit against a first call's, each timed (CUDA events)."""
+    from repro_torch.ops import autotune
+    try:
+        timed = autotune.time_candidates(*args, live, reps=reps)
+    except ValueError as e:
+        fail(str(e))
+    emit({"phase": "kernels", "kernel": "hash_dedup", "autotune": [
+        {**cand, "ms": us / 1e3, "bit_exact": True} for cand, us in timed],
+        "cache_fingerprint": autotune.cache_fingerprint()})
 
 
 def spmm_bits_or_fail(name, got, sargs):
@@ -645,6 +674,13 @@ def adversarial(fk, fr, sk, sr):
         cases += 1
     torch.cuda.synchronize()
     emit({"phase": "kernels", "adversarial_cases": cases, "ok": True})
+
+
+def device_rows(prof):
+    """``launch/perf.py``'s (self device us, name, count) of each device
+    event of a finished profile."""
+    from repro_torch.launch import perf
+    return perf.device_rows(prof)
 
 
 def enqueue_ms(fn, reps):
@@ -845,6 +881,7 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records, trials):
     inputs, masked_cdf_draw's search on the LADIES batch's CDFs, the
     transposed SpMM and the row gather on the LABOR-0 batch's blocks,
     then the weight-gradient path."""
+    from repro_torch.launch import roofline as rl
     from repro_torch import ops as TO
     from repro_torch.kernels.frontier import ops as fk
     from repro_torch.kernels.frontier import ref as fr
@@ -878,7 +915,7 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records, trials):
             cuda_ms(lambda: fr.segment_select(keys, slot, mask, seg_start,
                                               take), reps),
             cuda_ms(pair[1], reps),
-            nbytes=n * 5 + S * 8 + E)
+            rl.segment_select(n, S, E))
         emit({"phase": "kernels", "kernel": "segment_select", "layer": layer,
               "E": E, "S": S, "live": n, "selected": int(want.sum()),
               "segments_over_256": int((lens > 256).sum()),
@@ -904,16 +941,12 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records, trials):
 
         same(f"masked_cdf_draw library layer {layer}",
              library().to(torch.int32), want)
-        # u and the draws once each, and one dependent 4-byte CDF read per
-        # level of the binary search (ceil(log2(C + 1)) levels), at most
-        # the whole CDF
-        probes = min(C, n * C.bit_length())
         pair = (lambda cdf=cdf, u=u: fk.cdf_search(cdf, u), library)
         trials["masked_cdf_draw"].append(pair)
         t = records["masked_cdf_draw"].add(
             cuda_ms(pair[0], reps),
             cuda_ms(lambda: fr.cdf_search(cdf, u), reps),
-            cuda_ms(pair[1], reps), nbytes=8 * n + 4 * probes)
+            cuda_ms(pair[1], reps), rl.masked_cdf_draw(C, n))
         emit({"phase": "kernels", "kernel": "masked_cdf_draw",
               "layer": layer, "C": C, "n": n,
               "valid": int(valid.sum()), **t})
@@ -946,7 +979,7 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records, trials):
             cuda_ms(lambda: sk.gather_dst_rows(*gargs, live), reps),
             cuda_ms(lambda: sr.gather_dst_ref(*gargs), reps),
             cuda_ms(lambda: gz.index_select(0, idx), reps),
-            nbytes=n * 5 + rows * F * 4 + E * F * 4)
+            rl.gather_dst(n, rows, E, F))
         emit({"phase": "kernels", "kernel": "gather_dst", "layer": layer,
               "E": E, "F": F, "live": n, **t})
         if layer == last:
@@ -969,8 +1002,7 @@ def phase_train_kernels(samplers_, data, seeds, key, reps, records, trials):
             cuda_ms(lambda: sk.spmm_transposed(*targs, n_live=live), reps),
             cuda_ms(lambda: sr.spmm_transposed_ref(*targs), reps),
             cuda_ms(library, reps),
-            nbytes=n * 17 + rows * F * 4 + blk.next_cap * F * 4,
-            flops=2.0 * n * F, err=err)
+            rl.spmm_t(n, rows, blk.next_cap, F), err=err)
         emit({"phase": "kernels", "kernel": "spmm_t", "layer": layer,
               "S": blk.next_cap, "F": F, "live": n, "max_abs_err": err, **t})
 
@@ -1130,6 +1162,7 @@ def phase_gatv2_kernels(engine, data, seeds, key, reps, records, n_cls,
     per-edge scatter in both forms (dst-sorted: ``scatter_edges``;
     through ``src_perm``: the backward of ``gather_src``) at that
     batch's widths, then adversarial cases."""
+    from repro_torch.launch import roofline as rl
     from repro_torch import ops as TO
     from repro_torch.core import rng as rng_lib
     from repro_torch.kernels.edge_softmax import ops as ek
@@ -1161,16 +1194,13 @@ def phase_gatv2_kernels(engine, data, seeds, key, reps, records, n_cls,
         err = allclose_or_fail(f"edge_softmax layer {layer}", got, want)
         check_softmax_rows(f"edge_softmax layer {layer}", got, blk.dst_slot,
                            blk.edge_mask, S)
-        # the live logits, slots and mask read once, every coefficient
-        # written once; per live logit two expf, two subtractions, an add
-        # and a division
         kernel = (lambda sargs=sargs, live=live:
                   ek.edge_softmax_rows(*sargs, live))
         softmax_calls.append((kernel, None))
         t = records["edge_softmax"].add(
             cuda_ms(kernel, reps),
             cuda_ms(lambda: er.edge_softmax_ref(*sargs), reps), None,
-            nbytes=n * H * 4 + n * 5 + E * H * 4, flops=6.0 * n * H, err=err)
+            rl.edge_softmax(n, H, E), err=err)
         emit({"phase": "kernels", "kernel": "edge_softmax", "layer": layer,
               "E": E, "H": H, "S": S, "live": n, "max_abs_err": err,
               "library": "none: no single PyTorch call computes a segment "
@@ -1207,8 +1237,7 @@ def phase_gatv2_kernels(engine, data, seeds, key, reps, records, n_cls,
                 cuda_ms(lambda: sr.scatter_rows_ref(index, blk.edge_mask,
                                                     vals, rows, perm), reps),
                 cuda_ms(library, reps),
-                nbytes=n * F * 4 + n * (9 if perm is not None else 5)
-                + rows * F * 4, flops=float(n * F), err=err)
+                rl.scatter_rows(n, F, rows, perm is not None), err=err)
             # the sweep's keys: the longest row (one warp's sequential
             # sum) and the widest jump between neighbours (rows the
             # offsets pass fills)
@@ -2058,85 +2087,60 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def _frontier_sets(frontiers):
-    return [torch.unique(f[f >= 0]).cpu() for f in frontiers]
-
-
-def _warm_step(engine, model, state, data, seeds, key):
-    """One more step and its flush (for a profile window)."""
-    model, state, _ = engine.step(model, state, data, seeds, key)
-    engine.flush(model, state, data)
-
-
 def mesh_drive(mesh, ds, batches, seed, check_plain=False, profile=False):
-    """``build_gnn_engine`` on ``mesh`` over ``batches``, each step
-    followed by a flush (an overflowed batch is replayed before the next
-    one, so the order of updates is the single-device run's whatever
-    either run's caps do). Counts are zeroed before the steps and read
-    after, summed over the ranks. ``check_plain``: step 0's sampling
-    half (routing included) recomputed on the plain path on the card,
-    blocks and frontiers bit for bit. ``profile``: one more step under
-    torch.profiler, after the counts are read. Returns each step's
-    metrics (the frontier sets on the host), the final parameters, the
-    counts and the engine's metadata."""
-    from repro_torch.core import rng as rng_lib
+    """``build_gnn_engine`` on ``mesh`` over ``batches`` through
+    ``launch/perf.py``'s step loop (each step followed by a flush; an
+    overflowed batch is replayed before the next one, so the order of
+    updates is the single-device run's whatever either run's caps do).
+    Counts are zeroed before the steps and read after, summed over the
+    ranks. ``check_plain``: step 0's sampling half (routing included)
+    recomputed on the plain path on the card, blocks and frontiers bit
+    for bit. ``profile``: one more step under torch.profiler, after the
+    counts are read. Returns each step's metrics (the frontier sets on
+    the host), the final parameters, the counts and the engine's
+    metadata."""
+    from repro_torch.launch import perf
     from repro_torch.launch.gnn_step import build_gnn_engine
-    from repro_torch.models import gnn as gnn_models
     from repro_torch.runtime.engine import TrainEngine
 
     t_set = time.perf_counter()
     cfg = mesh_workload(ds)
     engine, meta = build_gnn_engine(mesh, cfg)
-    model = gnn_models.gcn_init(rng_lib.key(seed), cfg.feature_dim,
-                                cfg.hidden, cfg.num_classes, cfg.num_layers,
-                                device=mesh.device)
-    data = engine.make_data_from_dataset(ds)
-    state = engine.init_state(model)
-    batches = [(torch.as_tensor(s, device=mesh.device), k)
-               for s, k in batches]
-    if check_plain:
-        seeds, key = batches[0]
-        plain = TrainEngine(engine.sampler, mesh=mesh, backend="eager")
-        bk = engine.sample_stage(data.graph, seeds, key)
-        be = plain.sample_stage(data.graph, seeds, key)
+    build_s = time.perf_counter() - t_set
+
+    def before(engine, data, batches):
+        if check_plain:
+            seeds, key = batches[0]
+            plain = TrainEngine(engine.sampler, mesh=mesh, backend="eager")
+            bk = engine.sample_stage(data.graph, seeds, key)
+            be = plain.sample_stage(data.graph, seeds, key)
+            sync(mesh.device)
+            compare_blocks(bk.blocks, be.blocks, "train mesh step 0")
+            for a, b in zip(bk.frontiers, be.frontiers):
+                same("train mesh step 0 frontier", a, b)
         sync(mesh.device)
-        compare_blocks(bk.blocks, be.blocks, "train mesh step 0")
-        for a, b in zip(bk.frontiers, be.frontiers):
-            same("train mesh step 0 frontier", a, b)
-        del plain, bk, be
-    sync(mesh.device)
-    setup_s = time.perf_counter() - t_set
-    reset_launches()
-    steps = []
-    for t, (seeds, key) in enumerate(batches):
-        t0 = time.perf_counter()
-        model, state, m = engine.step(model, state, data, seeds, key, tag=t)
-        model, state, rm = engine.flush(model, state, data)
-        sync(mesh.device)
-        dt = time.perf_counter() - t0
-        m = rm if rm is not None else m
-        steps.append(dict(
-            seconds=dt, loss=float(m["loss"]), acc=float(m["acc"]),
-            sampled_v=int(m["sampled_v"]), sampled_e=int(m["sampled_e"]),
-            feat_rows=int(m["feat_rows"]),
-            overflow=bool(m["overflow"].any()),
-            frontiers=_frontier_sets(m["frontiers"])))
-    counts = launch_counts()
-    names = sorted(counts)
-    summed = mesh.psum(torch.tensor([counts[n] for n in names],
-                                    dtype=torch.int64, device=mesh.device))
-    params = [p.detach().cpu() for p in model.parameters()]
-    window = (profile_window(lambda i: _warm_step(engine, model, state, data,
-                                                  *batches[0]), 1)
-              if profile else None)
-    return dict(steps=steps, meta=meta, setup_seconds=setup_s,
-                profile=window,
+        reset_launches()
+
+    def after():
+        counts = launch_counts()
+        names = sorted(counts)
+        summed = mesh.psum(torch.tensor([counts[n] for n in names],
+                                        dtype=torch.int64,
+                                        device=mesh.device))
+        return dict(zip(names, summed.tolist()))
+
+    run = perf._drive_gnn(engine, ds, cfg, batches, seed, mesh.device,
+                          mesh=mesh, profile=profile, count=False,
+                          before_steps=before, after_steps=after)
+    return dict(steps=run["steps"], meta=meta,
+                setup_seconds=build_s + run["setup_seconds"],
+                profile=run["profile"],
                 staged=sorted(mesh.staged), backend=mesh.backend,
-                ranks=mesh.size, replays=engine.stats.overflow_replays,
-                retries=engine.stats.overflow_retries,
+                ranks=mesh.size, replays=run["replays"],
+                retries=run["retries"],
                 caps=[c.__dict__ for c in engine.sampler.caps],
                 peer_caps=list(engine.sampler.spec.peer_caps),
-                params=params, launches=dict(zip(names, summed.tolist())))
+                params=run["params"], launches=run["after"])
 
 
 def _mesh_rank(mesh, path, batches, seed):
@@ -2210,55 +2214,33 @@ def mesh_hold(what, got, want, feat_dim):
         "peer_caps": got["peer_caps"], "launches": got["launches"]}
 
 
+#: the keys of ``launch/perf.py``'s report that the phases print
+PERF_KEYS = ("card", "flops_per_device", "bytes_per_device",
+             "wire_bytes_per_device", "t_compute_s", "t_memory_s",
+             "t_collective_s", "dominant", "step_time_lower_bound_s",
+             "peak", "mfu", "roofline_fraction", "measured_s",
+             "bound_share_of_measured", "model_flops_total")
+
+
 def single_drive(ds, batches, seed):
     """The single-device engine on the card with the mesh's sampler
     geometry at the global batch (no per-peer caps), over the same
-    batches, each step followed by a flush; each step's frontier sets
-    from a sampling pass with the same key."""
-    from repro_torch.core import rng as rng_lib
-    from repro_torch.core import samplers as sampler_registry
-    from repro_torch.models import gnn as gnn_models
-    from repro_torch.optim import adam
-
-    cfg = mesh_workload(ds)
-    sampler = sampler_registry.from_graph_stats(
-        cfg.sampler, batch_size=cfg.global_batch, fanouts=cfg.fanouts,
-        avg_degree=cfg.avg_degree,
-        max_degree=int(min(cfg.avg_degree * 64, cfg.num_vertices - 1)),
-        num_vertices=cfg.num_vertices,
-        num_edges=int(cfg.num_vertices * cfg.avg_degree),
-        safety=cfg.cap_safety)
-    from repro_torch.runtime.engine import TrainEngine
-    engine = TrainEngine(sampler, adam.AdamConfig(lr=1e-3), device=DEV)
-    model = gnn_models.gcn_init(rng_lib.key(seed), cfg.feature_dim,
-                                cfg.hidden, cfg.num_classes, cfg.num_layers,
-                                device=DEV)
-    data = engine.make_data_from_dataset(ds)
-    state = engine.init_state(model)
-    steps = []
-    for seeds, key in batches:
-        seeds = torch.as_tensor(seeds, device=DEV)
-        t0 = time.perf_counter()
-        model, state, m = engine.step(model, state, data, seeds, key)
-        model, state, rm = engine.flush(model, state, data)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        m = rm if rm is not None else m
-        blocks = engine.sample_stage(data.graph, seeds, key)
-        sets = _frontier_sets([seeds] + [b.next_seeds for b in blocks])
-        steps.append(dict(seconds=dt, loss=float(m["loss"]),
-                          acc=float(m["acc"]),
-                          sampled_v=int(m["sampled_v"]),
-                          sampled_e=int(m["sampled_e"]),
-                          overflow=bool(m["overflow"].any()),
-                          frontiers=sets))
-    params = [p.detach().cpu() for p in model.parameters()]
-    seeds, key = batches[0]
-    window = profile_window(lambda i: _warm_step(
-        engine, model, state, data, torch.as_tensor(seeds, device=DEV), key),
-        1)
-    return dict(steps=steps, params=params, profile=window,
-                replays=engine.stats.overflow_replays)
+    batches, each step followed by a flush, through
+    ``launch/perf.measure_gnn`` (its roofline terms and ``mfu`` beside
+    the measured step); each step's frontier sets from a sampling pass
+    with the same key."""
+    from repro_torch.launch import perf
+    out = perf.measure_gnn(dataset=ds, batches=batches, seed=seed,
+                           global_batch=mesh_workload(ds).global_batch,
+                           device=DEV, keep=True)
+    return dict(steps=out["step_records"], params=out["params"],
+                replays=out["replays"], perf={
+                    **{k: out[k] for k in PERF_KEYS},
+                    "model_flops_geometry": out["model_flops_geometry"],
+                    "layer_sizes_step0": out["layer_sizes"][0],
+                    "device_busy_ms": out["device_busy_ms"],
+                    "device_idle_share": out["device_idle_share"],
+                    "peak_memory_gib": out["peak_memory_gib"]})
 
 
 def phase_mesh(ds, opts, card):
@@ -2285,7 +2267,7 @@ def phase_mesh(ds, opts, card):
           "step_seconds": [s["seconds"] for s in single["steps"]],
           "sampled_v": [s["sampled_v"] for s in single["steps"]],
           "losses": [s["loss"] for s in single["steps"]],
-          "replays": single["replays"], "profile": single["profile"]})
+          "replays": single["replays"], "perf": single["perf"]})
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2484,6 +2466,7 @@ def phase_serve_async(built, opts):
     the kernel path's); then 5 warm dispatches under torch.profiler and
     one cache lookup at layer 2's shape timed with CUDA events beside
     its bytes bound."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.core import rng as rng_lib
     from repro_torch.kernels.frontier import ops as fk
     from repro_torch.kernels.frontier import ref as fr
@@ -2612,7 +2595,7 @@ def phase_serve_async(built, opts):
         "plain_ms": cuda_ms(lambda: fr.hash_dedup(*largs), opts.reps),
         "library_ms": cuda_ms(unique_lookup, opts.reps),
         # read ids and their mask, the keys; write new and slots
-        "bound_ms": (T * 5 + C * 4 + T * 8 + 5) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": rl.hash_dedup(T, C, T, T).bound_ms(),
         "bound_by": "bytes"}})
     del runs, out, blocks_k, blocks_e, logits_k, logits_e
     torch.cuda.empty_cache()
@@ -2654,57 +2637,13 @@ def phase_profile(engine, data, model, seeds, key):
     emit({"phase": "profile", "window_requests": n_req, **window})
 
 
-def device_rows(prof):
-    """(self device us, name, count) of each of the device's own events
-    (kernels, copies, memsets) in a finished profile; an operator's
-    device time repeats its kernels' and is left out."""
-    from torch.autograd import DeviceType
-    rows = []
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        rows.append((us, evt.key, evt.count))
-    return rows
-
-
 def profile_window(run, n, share_of=None):
-    """torch.profiler over ``run(0) .. run(n - 1)``: the window's
-    elapsed time, the device's busy time and operations per call, its
-    idle share in that same window, the top device kernels per call and,
-    with ``share_of``, the share of the busy time spent in kernels whose
-    name holds that string.
-    Busy and elapsed come from the same window (one stream, so the sum
-    of device events is the busy time). The profiler's host overhead
-    slows the launches, so the idle share is an upper estimate of the
-    unprofiled one. No device events -> busy and idle are not measured
-    (None)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n):
-            run(i)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    out = {}
-    if share_of is not None:
-        hit = sum(r[0] for r in rows if share_of in r[1]) / 1e3
-        out[f"{share_of}_share_of_busy"] = hit / busy_ms if busy_ms else None
-    return {**out, "window_ms": window_ms,
-            "device_busy_ms_per_call": busy_ms / n or None,
-            "device_ops_per_call": sum(r[2] for r in rows) / n,
-            "device_idle_share": (max(0.0, 1.0 - busy_ms / window_ms)
-                                  if busy_ms else None),
-            "top": [{"name": k[:80], "calls_per_call": c / n,
-                     "device_ms_per_call": us / 1e3 / n}
-                    for us, k, c in rows[:15]]}
+    """``launch/perf.py``'s torch.profiler window over ``run(0) ..
+    run(n - 1)``: elapsed ms, the device's busy ms and operations a
+    call, its idle share and top kernels (busy and idle None when the
+    profile holds no device event)."""
+    from repro_torch.launch import perf
+    return perf.profile_window(run, n, share_of)
 
 
 #: the LM serving paths: name -> (arch, decode batch, prompt, generated
@@ -2761,15 +2700,6 @@ LM_REPS = 3
 LM_TOL = 1e-4
 
 
-def visible_pairs(Sq, Sk, causal, window):
-    """(query, key) pairs the attention mask lets through, per head."""
-    i = torch.arange(Sq, dtype=torch.int64)
-    hi = torch.clamp(i, max=Sk - 1) if causal else torch.full_like(i, Sk - 1)
-    lo = (torch.clamp(i - window + 1, min=0) if window is not None
-          else torch.zeros_like(i))
-    return int(torch.clamp(hi - lo + 1, min=0).sum())
-
-
 def attention_chunked(q, k, v, chunk=1024, **kw):
     """The plain version one query chunk at a time: its (Sq, Sk) scores
     of a 32k prompt would not fit the card."""
@@ -2785,6 +2715,7 @@ def flash_check(name, q, k, v, kw, record=None, library=None):
     scaled to the values averaged), bf16 within 3e-2. With ``record``,
     times the kernel, the plain version (chunked) and ``library`` (a
     PyTorch call computing the same function, or None) and adds them."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.kernels.flash_attention import ops as fa
     B, Sq, Hq, hd = q.shape
     Sk = k.shape[1]
@@ -2811,13 +2742,13 @@ def flash_check(name, q, k, v, kw, record=None, library=None):
                                           - want.float()).abs().max().item()
             lib_ms = cuda_ms(library, LM_REPS)
         del got, want
-        pairs = visible_pairs(Sq, Sk, kw["causal"], kw["window"])
-        esize = q.element_size()
+        pairs = rl.visible_pairs(Sq, Sk, kw["causal"], kw["window"])
         t = record.add(
             cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, *args), LM_REPS),
             cuda_ms(lambda: attention_chunked(q, k, v, **kw), LM_REPS),
-            lib_ms, nbytes=esize * (2 * q.numel() + k.numel() + v.numel()),
-            flops=4.0 * B * Hq * hd * pairs, err=err)
+            lib_ms, rl.flash_attention(B, Sq, Sk, Hq, k.shape[2], hd,
+                                       q.element_size(), kw["causal"],
+                                       kw["window"]), err=err)
         out.update(visible_pairs=pairs, **t)
     emit(out)
     return err
@@ -3011,6 +2942,10 @@ def phase_lm(path, opts, records):
     if depth is not None:
         line["reduced"] = [f"num_layers {get_config(arch).num_layers}"
                            f" -> {depth}"]
+    lap = time.perf_counter()
+    line["account"] = account_or_fail(path, cfg, "prefill", batch,
+                                      prompt + gen, peak)
+    stages["account"] = time.perf_counter() - lap
     emit(line)
 
     # B9 on the real inputs of the first attention layers (and SDPA where
@@ -3384,7 +3319,8 @@ def phase_lm_train(path, opts, built=None):
             "step_ms": [t * 1e3 for t in run["step_seconds"]],
             "warm_step_ms": step_ms,
             "tokens_per_s": batch * seq / step_ms * 1e3,
-            "launches": launches, "peak_memory_gib": peak}
+            "launches": launches, "peak_memory_gib": peak,
+            "account": account_or_fail(path, cfg, "train", batch, seq, peak)}
     if cfg.xattn_source_len:
         line.update(frames=cfg.xattn_source_len,
                     frames_drawn_by="serve.source_frames")
@@ -3397,6 +3333,14 @@ def phase_lm_train(path, opts, built=None):
     window = profile_window(lambda i: step(params, opt, b0), 1,
                             share_of="flash")
     emit({"phase": path, "profile": "one train step", **window})
+    from repro_torch.launch import perf
+    lap_perf = time.perf_counter()
+    m = perf.measure_lm(arch, "train_4k", cfg=cfg, batch=batch, seq_len=seq,
+                        device=DEV, measured={"seconds": step_ms / 1e3,
+                                              "profile": window,
+                                              "peak_memory_gib": peak})
+    stages["counts"] = time.perf_counter() - lap_perf
+    emit({"phase": path, "perf": {k: m[k] for k in PERF_KEYS}})
     with torch.no_grad():
         window = profile_window(lambda i: lm.loss_fn(params, b0, cfg), 1,
                                 share_of="flash")
@@ -3404,10 +3348,25 @@ def phase_lm_train(path, opts, built=None):
     del params, opt, step, b0, toks, labels
     gc.collect()
     torch.cuda.empty_cache()
-    stages["profiles"] = time.perf_counter() - lap
+    stages["profiles"] = time.perf_counter() - lap - stages["counts"]
     emit({"phase": path, "seconds": time.perf_counter() - t_path,
           "stage_seconds": stages})
     return launches
+
+
+def account_or_fail(path, cfg, kind, batch, seq, peak_gib):
+    """``launch/dryrun.account`` of a path (fp32 state) beside its
+    measured peak: its resident state (the parameters, and the optimizer
+    state or the cache the path holds) must not exceed the peak."""
+    from repro_torch.launch import dryrun
+    acct = dryrun.account(cfg, kind, batch, seq)
+    peak = peak_gib * 2**30
+    if not acct["resident"] <= peak:
+        fail(f"{path}: the dry run's resident {acct['resident'] / 2**30} "
+             f"GiB exceeds the measured peak {peak_gib} GiB")
+    return {"predicted_gib": {k: v / 2**30 for k, v in acct.items()},
+            "measured_peak_gib": peak_gib,
+            "resident_over_peak": acct["resident"] / peak}
 
 
 def unregistered(arch):
@@ -3469,7 +3428,7 @@ def phases_lm(opts, records, paths):
     records["flash_attention"] = Record(
         "flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:30",
-        flop_rate=TF32X3_FLOP_PER_S)
+        peak="3xtf32")
     adversarial_flash()
     trained = {arch for arch, *_ in LM_TRAIN_PATHS.values()}
     kept = {}

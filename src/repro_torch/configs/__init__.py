@@ -18,7 +18,10 @@ from repro_torch.configs import (
     stablelm_1_6b,
     zamba2_2_7b,
 )
-from repro_torch.models.transformer.config import LM_SHAPES
+from repro_torch.models.transformer.config import (  # noqa: F401
+    LM_SHAPES,
+    shape_by_name,
+)
 
 ARCHS = {
     "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b.config,
@@ -56,3 +59,10 @@ def cells_for(arch: str) -> List[dict]:
         else:
             out.append({"shape": s.name, "run": True, "reason": ""})
     return out
+
+
+def all_lm_cells():
+    """(arch, cell) for every registered LM arch and shape cell."""
+    for arch in ARCHS:
+        for cell in cells_for(arch):
+            yield arch, cell

@@ -344,7 +344,10 @@ def normal(k: Key, shape, device="cpu") -> torch.Tensor:
     """``jax.random.normal(k, shape)`` in float32 on ``device``, bit for
     bit: ``sqrt(2) * erf_inv(u)`` with ``u = uniform(k, shape,
     nextafter(-1, 0), 1)``, one pass of :data:`_CHUNK` values at a
-    time."""
+    time. On the ``meta`` device nothing is drawn: the result only has
+    the shape and dtype (the dry run's parameter counts)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device=device)
     n = _numel(shape)
     out = torch.empty(n, dtype=torch.float32, device=device)
     lo = _f32(-1.0, device).nextafter(_f32(0.0, device))

@@ -104,12 +104,19 @@ def generate(spec: DatasetSpec, scale: float = 1.0, seed: int = 0,
     glob_p = pop / pop.sum()
     n_glob = int((~in_comm).sum())
     src[~in_comm] = rng.choice(n, size=n_glob, p=glob_p)
+    # the in-community edges grouped by their destination's community,
+    # each group in edge order (a stable sort): the edges ``in_comm &
+    # (comm[dst] == c)`` selects, found once instead of once a class
+    local = np.nonzero(in_comm)[0]
+    local_comm = comm[dst[local]]
+    local = local[np.argsort(local_comm, kind="stable")]
+    ends = np.searchsorted(np.sort(local_comm), np.arange(ncls + 1))
     for c in range(ncls):
         members = np.nonzero(comm == c)[0]
         if members.size == 0:
             members = np.arange(n)
-        sel = in_comm & (comm[dst] == c)
-        k = int(sel.sum())
+        sel = local[ends[c]:ends[c + 1]]
+        k = sel.shape[0]
         if k == 0:
             continue
         p = pop[members] / pop[members].sum()

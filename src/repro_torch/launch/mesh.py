@@ -76,6 +76,14 @@ class Mesh:
         #: over CUDA tensors only)
         self.staged = set(_GLOO_HOST_ONLY) if self._gloo_cuda else set()
         self._probed = set()
+        #: payload bytes this rank sent by collective kind
+        #: ("all-reduce", "all-to-all", "collective-permute"), for the
+        #: roofline's collective term (``launch/perf.py``)
+        self.moved = {}
+
+    def _count(self, kind: str, x: torch.Tensor) -> None:
+        self.moved[kind] = (self.moved.get(kind, 0)
+                            + x.numel() * x.element_size())
 
     # ------------------------------------------------------------------
     # collectives
@@ -112,6 +120,7 @@ class Mesh:
                 out.copy_(inp)
             dist.all_reduce(out, op=red)
         y = x.contiguous().clone()
+        self._count("all-reduce", y)
         return self._run(name, op, y, y)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
@@ -134,6 +143,7 @@ class Mesh:
             raise ValueError(f"all_to_all needs a leading axis of "
                              f"{self.size}, got {tuple(x.shape)}")
         x = x.contiguous()
+        self._count("all-to-all", x)
 
         def op(out, inp):
             dist.all_to_all_single(out, inp)
@@ -150,6 +160,7 @@ class Mesh:
         if self.size == 1:
             return x.clone()
         x = x.contiguous()
+        self._count("collective-permute", x)
         to = (self.rank + shift) % self.size
         frm = (self.rank - shift) % self.size
 

@@ -6,9 +6,11 @@ The train step updates the model in place: the nested parameter tree
 (dicts, and per-repeat lists under ``"layers"``) is flattened into the
 name -> tensor dict of ``optim.adam`` (:func:`flatten_params`; names are
 the tree's paths, e.g. ``layers/0/3/mix/wq``), and
-``adam.apply_updates_`` writes the new values into those tensors. The
-reference's ``input_specs`` / ``cache_specs`` (ShapeDtypeStructs for its
-multi-pod dry run) are not ported (``ROADMAP.md``).
+``adam.apply_updates_`` writes the new values into those tensors.
+:func:`input_specs` and :func:`cache_specs` give a cell's inputs and
+decode cache as ``meta``-device tensors (shapes and dtypes, no memory),
+the reference's ShapeDtypeStructs for the one-card dry run
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -171,3 +173,37 @@ def make_serve_step(cfg: TransformerConfig):
         logits, cache = stack.decode_step(params, tokens, cache, pos, cfg)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# dry-run specs: meta-device tensors (no allocation)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: TransformerConfig, shape) -> Dict[str, object]:
+    """``meta`` stand-ins for every model input of a cell (``shape``, a
+    ``config.ShapeSpec``): a train cell's ``batch`` of ``tokens`` and
+    ``labels`` (B, S) int32, a prefill's ``tokens``, with ``xsource`` (B,
+    source length, width) in the config's dtype where it has
+    cross-attention; a decode cell's ``tokens`` (B, 1) and ``pos`` ()."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def t(size, dtype):
+        return torch.empty(size, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": t((B, 1), torch.int32), "pos": t((), torch.int32)}
+    batch = {"tokens": t((B, S), torch.int32)}
+    if shape.kind == "train":
+        batch["labels"] = t((B, S), torch.int32)
+    if cfg.xattn_every or cfg.has_block("xattn"):
+        batch["xsource"] = t(
+            (B, cfg.xattn_source_len, cfg.xattn_source_dim or cfg.d_model),
+            getattr(torch, cfg.dtype))
+    return {"batch": batch}
+
+
+def cache_specs(cfg: TransformerConfig, shape):
+    """The decode cache of a cell (``stack.init_cache`` at the cell's
+    batch and sequence) on the ``meta`` device."""
+    return stack.init_cache(cfg, shape.global_batch, shape.seq_len,
+                            device="meta")

@@ -31,9 +31,11 @@ the port's backends are ``eager`` and ``cuda``, so the port records its
 backend under ``"torch_backend"``, refuses to resume under another
 ``torch_backend``, and ignores ``"backend"``, which names the
 reference's kernels (so each package resumes the other's checkpoints).
-The reference's ``frontier_tuning`` is left out (autotuning is not
-ported; the reference then neither warns nor fails) and ``peer_caps``
-is written as ``null``.
+``frontier_tuning`` is the tuning cache's fingerprint
+(``ops/autotune.py::cache_fingerprint``, None for the defaults), as in
+the reference: a mismatch on restore warns and never refuses, since no
+tuned knob changes a result. ``peer_caps`` is the sampler's per-peer
+all-to-all caps (a list, or ``null`` off a mesh).
 """
 from __future__ import annotations
 
@@ -375,11 +377,14 @@ def engine_restore_meta(sampler, mesh_devices: int = 0,
     """The JSON record of the specialisation a run trains under: the
     sampler (name, budgets, caps, which may have grown through overflow
     replay, salt schedule, the per-peer all-to-all caps), the mesh shape,
-    the gradient compression and the port's backend
-    (``torch_backend``)."""
+    the gradient compression, the port's backend (``torch_backend``) and
+    the tuning cache's fingerprint (``frontier_tuning``)."""
+    from repro_torch.ops import autotune
+
     spec = sampler.spec
     return {
         **({} if backend is None else {"torch_backend": backend}),
+        "frontier_tuning": autotune.cache_fingerprint(),
         "sampler": {
             "name": spec.name,
             "budgets": list(spec.budgets),
@@ -402,8 +407,10 @@ def validate_restore_meta(meta: dict, sampler, mesh_devices: int = 0,
     sampler's name, budgets or salt schedule, the mesh shape, the
     compression or (``backend`` not None) the ``torch_backend`` raises
     ``ValueError``; ``"backend"`` (the reference's kernels) is not
-    checked. The caps and the per-peer caps are the checkpoint's. A
-    checkpoint without a ``sampler`` record passes unchanged."""
+    checked. A ``frontier_tuning`` other than the current tuning cache's
+    fingerprint warns. The caps and the per-peer caps are the
+    checkpoint's. A checkpoint without a ``sampler`` record passes
+    unchanged."""
     from repro_torch.core.interface import LayerCaps
 
     rec = meta.get("sampler")
@@ -435,6 +442,18 @@ def validate_restore_meta(meta: dict, sampler, mesh_devices: int = 0,
             "checkpoint was trained under a different engine "
             "specialization — refusing to resume:\n  "
             + "\n  ".join(problems))
+    if "frontier_tuning" in meta:
+        import warnings
+
+        from repro_torch.ops import autotune
+        cur = autotune.cache_fingerprint()
+        if meta["frontier_tuning"] != cur:
+            warnings.warn(
+                f"frontier tuning cache differs from the checkpoint's "
+                f"({meta['frontier_tuning']} vs {cur}); results are "
+                "unaffected (every table load gives the same output) but "
+                "step times may differ: python -m repro_torch.ops.autotune "
+                "tunes again", stacklevel=2)
     peer = rec.get("peer_caps")
     return sampler.with_caps(
         tuple(LayerCaps(*c) for c in rec["caps"])).with_peer_caps(

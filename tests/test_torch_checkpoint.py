@@ -297,14 +297,22 @@ def test_resume_across_packages(tmp_path, dsets, ten_steps, first):
     _close_to(out["history"], ref["history"][6:])
 
 
-def test_engine_record_rules(tmp_path, dsets):
+def test_engine_record_rules(tmp_path, dsets, monkeypatch):
+    from repro_torch.ops import autotune
+    cache = autotune.TuneCache(str(tmp_path / "tune.json"), {
+        autotune.bucket_key("hash_dedup", "cuda", {"E": 4096, "S": 64}):
+            {"table_load": 1.5, "us": 12.5}})
+    cache.save()
+    monkeypatch.setenv(autotune.CACHE_ENV, cache.path)
+    monkeypatch.setattr(autotune, "_STATE", {"path": None, "cache": None})
     _, dt = dsets
     s = TS.from_dataset("labor-0", dt, batch_size=64, fanouts=(4, 4),
                         safety=3.0)
     meta = ck.engine_restore_meta(s.doubled(), backend="eager")
     assert meta["torch_backend"] == "eager" and "backend" not in meta
     assert meta["sampler"]["peer_caps"] is None
-    assert "frontier_tuning" not in meta
+    assert cache.fingerprint() is not None
+    assert meta["frontier_tuning"] == cache.fingerprint()
     back = ck.validate_restore_meta(json.loads(json.dumps(meta)), s,
                                     backend="eager")
     assert back.caps == s.doubled().caps          # caps re-adopted

@@ -5,6 +5,7 @@ marked ``cuda`` and skips without a card; run them there with
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import threading
 
 import pytest
 
@@ -1632,8 +1633,8 @@ def test_spmm_forward_is_one_device_operation(cuda_device):
     assert all("spmm_forward_kernel" in k for k, _ in ops), ops
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
     out = sk.spmm_block(src, dst, w, mask, h, 200_000, n_live=live)
-    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
-        - before == 1
+    grew = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    assert grew == 1, (grew, [t.name for t in threading.enumerate()])
     del out
 
 
@@ -2115,3 +2116,49 @@ def test_encdec_prefill_and_train_step_match_eager(cuda_device):
         rel = ((t.double() - pe[name].double()).norm()
                / pe[name].double().norm().clamp(min=1e-30)).item()
         assert rel <= 1e-3, name
+
+
+# -- FSDP x TP placements and elastic resharding --------------------------------
+
+@pytest.mark.cuda
+def test_elastic_reshard_on_one_card(cuda_device, tmp_path):
+    """A 2-layer cut of gemma2-2b at full width placed on a (1, 1) mesh
+    of a world-size-1 NCCL group, saved, and resharded from the
+    checkpoint and from the live DTensors onto a new (1, 1) mesh: every
+    tensor bit for bit, with the rules' placements."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import lm, stack
+    from repro_torch.runtime import checkpoint as ck
+    from repro_torch.runtime import elastic
+
+    cfg = dataclasses.replace(configs.get_config("gemma2-2b",
+                                                 dtype="float32"),
+                              num_layers=2)
+    shapes = lm.flatten_params(stack.init_params(TR.key(0), cfg,
+                                                 device="meta"))
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    flat = {k: torch.randn(t.shape, generator=g, device=cuda_device)
+            for k, t in shapes.items()}
+    params = lm.unflatten_params(flat, stack.init_params(TR.key(0), cfg,
+                                                        device="meta"))
+    make_mesh(1, "cuda")
+    try:
+        mesh = sh.make_mesh((1, 1), "cuda")
+        placed = sh.distribute(params, mesh)
+        ck.save(str(tmp_path), 1, {"params": sh.full_tensors(placed)})
+        new = sh.make_mesh((1, 1), "cuda")
+        for out in (elastic.reshard_checkpoint(str(tmp_path), 1,
+                                               {"params": params},
+                                               new)["params"],
+                    elastic.reshard_live(placed, new)):
+            got = lm.flatten_params(sh.full_tensors(out))
+            for k, t in lm.flatten_params(out).items():
+                assert tuple(t.placements) == sh.placements(
+                    sh.leaf_entries(tuple(k.split("/")), t, new), new)
+                assert torch.equal(got[k].to(cuda_device), flat[k]), k
+    finally:
+        dist.destroy_process_group()
