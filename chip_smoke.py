@@ -12,7 +12,8 @@ error exits non-zero:
   1. device + build: the card's name and power limit (nvidia-smi), the
      seconds to compile every ``csrc/*.cu`` (one nvcc each, in parallel),
      each kernel's registers and spills, and ``cuobjdump -sass`` of B9's
-     library, which must hold TF32 HMMA (tensor-core) instructions;
+     library, which must hold HGMMA (wgmma) instructions of the TF32 and
+     BF16 kinds and UTMALDG (TMA) loads, and no HMMA (mma.sync);
   2. kernels against plain: each CUDA kernel and its plain PyTorch
      version on the same inputs on the card, plus adversarial cases
      (B9's in phase 6).
@@ -294,19 +295,28 @@ FULL_DEPTH = 3
 
 
 def tensor_core_sass(build):
-    """B9 runs on the tensor cores: ``cuobjdump -sass`` of its library
-    holds HMMA instructions of the TF32 kind (fails otherwise)."""
+    """B9 runs on Hopper's own units: ``cuobjdump -sass`` of its library
+    holds HGMMA (wgmma) instructions of the TF32 kind and of the BF16
+    kind, and UTMALDG (TMA tensor loads), and no HMMA (``mma.sync``);
+    fails otherwise, and returns the counts."""
     lib = build._target("flash_attention")
     tool = Path(build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300)
-    hmma = [ln.strip() for ln in sass.stdout.splitlines() if "HMMA" in ln]
-    tf32 = [ln for ln in hmma if "TF32" in ln]
-    if sass.returncode != 0 or not tf32:
-        fail(f"cuobjdump -sass of {lib.name}: {len(hmma)} HMMA lines, "
-             f"{len(tf32)} of the TF32 kind ({sass.stderr.strip()[:200]})")
-    return {"hmma_lines": len(hmma), "tf32_hmma_lines": len(tf32),
-            "first": tf32[0]}
+    lines = [ln.strip() for ln in sass.stdout.splitlines()]
+    hgmma = [ln for ln in lines if "HGMMA" in ln]
+    tf32 = [ln for ln in hgmma if ".TF32" in ln]
+    bf16 = [ln for ln in hgmma if ".BF16" in ln]
+    tma = [ln for ln in lines if "UTMALDG" in ln]
+    hmma = [ln for ln in lines if "HMMA" in ln]
+    counts = {"hgmma_lines": len(hgmma), "tf32_hgmma_lines": len(tf32),
+              "bf16_hgmma_lines": len(bf16), "utmaldg_lines": len(tma),
+              "hmma_lines": len(hmma)}
+    if sass.returncode != 0 or not tf32 or not bf16 or not tma or hmma:
+        fail(f"cuobjdump -sass of {lib.name}: {counts} "
+             f"({sass.stderr.strip()[:200]})")
+    return {**counts, "first_tf32": tf32[0], "first_bf16": bf16[0],
+            "first_utmaldg": tma[0]}
 
 
 def emit(obj):
@@ -2759,7 +2769,8 @@ def adversarial_flash():
     window 1 and window >= S, no softcap, GQA ratios 1, 2, 8 and 16 (at
     hd 128), MHA of 32 heads of 80, every head dimension, bf16, a custom
     scale, non-causal with a ragged Sk, queries that see no key, q read
-    through its strides, q misaligned (staged element by element)."""
+    through its strides, q misaligned (both read by the kernel's prologue
+    into its aligned scratch)."""
     g = torch.Generator(device=DEV).manual_seed(7)
     # (B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap, scale, dtype)
     cases = [
@@ -2786,7 +2797,7 @@ def adversarial_flash():
             q = torch.randn(B, Sq, 2, Hq, hd, generator=g, device=DEV)
             if layout == "strided q":     # a slice of a fused tensor
                 q = q[:, :, 1].to(dtype)
-            elif layout == "misaligned q":    # staged element by element
+            elif layout == "misaligned q":    # read by the prologue
                 flat = torch.empty(B * Sq * Hq * hd + 1, dtype=dtype,
                                    device=DEV)
                 q = flat[1:].view(B, Sq, Hq, hd).copy_(q[:, :, 0])

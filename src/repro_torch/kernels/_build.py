@@ -57,8 +57,8 @@ SIGNATURES = {
     "spmm_row_offsets": ("spmm", [_P, _P, _I, _P, _I, _P, _P]),
     "gather_dst_rows": ("spmm", [_P, _P, _I, _P, _P, _I, _I, _P, _P]),
     "edge_softmax": ("edge_softmax", [_P, _P, _I, _P, _P, _I, _I, _P, _P]),
-    "flash_attention_fwd": ("flash_attention", [_P] * 4 + [_I] * 6
-                            + [_L] * 12 + [_I, _I, _L, _I, _F, _F, _I, _I, _P]),
+    "flash_attention_fwd": ("flash_attention", [_P, _P, _F, _F, _P]),
+    "flash_attention_plan": ("flash_attention", [_I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

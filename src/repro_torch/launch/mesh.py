@@ -14,7 +14,8 @@ tensors goes through pinned host memory there, and :attr:`Mesh.staged`
 names each one. The compute stays on the card.
 
   # N ranks, each calling fn(mesh, *args); rank 0's return value back
-  out = spawn(fn, N, *args, device="cpu")
+  out = spawn(fn, N, *args)                 # NCCL, rank r on cuda:r
+  out = spawn(fn, N, *args, device="cpu")   # gloo on the CPU
   # or, inside a program that already is a rank (or alone, N = 1):
   mesh = make_mesh(N, device="cuda")
 """
@@ -222,12 +223,13 @@ def _rank_main(rank: int, fn, world: int, port: int, device, backend: str,
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, nprocs: int, *args, device="cpu",
+def spawn(fn: Callable, nprocs: int, *args, device="cuda",
           backend: Optional[str] = None, timeout_s: float = 600.0) -> Any:
     """Start ``nprocs`` ranks (spawned processes, one group with
     rendezvous on a free local port), run ``fn(mesh, *args)`` in each
-    and return rank 0's result (picklable by ``torch.save``). A rank
-    that raises makes this raise; every rank has ended on return."""
+    and return rank 0's result (picklable by ``torch.save``). The ranks
+    run on the card (rank r on ``cuda:r``) unless ``device="cpu"``. A
+    rank that raises makes this raise; every rank has ended on return."""
     import torch.multiprocessing as mp
 
     backend = backend or backend_for(device)

@@ -1227,6 +1227,85 @@ def test_flash_kernel_every_head_dim(cuda_device, hd, Sq, Sk, causal):
                                    atol=atol, msg=str(case))
 
 
+def _flash_against_plain(case, dev, layout="contiguous"):
+    """One call of the kernel against the plain version on the card: fp32
+    within 2e-5 x max(1, max|v|), bf16 within 3e-2."""
+    *_, causal, window, softcap, scale, dtype = case
+    q, k, v = _flash_inputs(case, dev, layout)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    want = fr_attn.attention_ref(q, k, v, **kw)
+    got = fa.flash_attention(q, k, v, causal, window, softcap, scale)
+    torch.cuda.synchronize()
+    atol = (3e-2 if dtype == torch.bfloat16
+            else 2e-5 * max(1.0, v.abs().max().item()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=atol, msg=str(case))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_plan_is_the_wrappers(cuda_device):
+    """The plan compiled into the kernel equals ``ops.plan``'s mirror for
+    every (hd, dtype)."""
+    for (dtype, hd) in fa.PLANS:
+        p = fa.plan(hd, dtype)
+        assert fa.kernel_plan(hd, dtype) == dict(
+            C=p["C"], BK=p["BK"], DC=p["DC"], NS=p["NS"],
+            swizzle=p["swizzle"]["q"], smem=p["smem"]), (dtype, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
+def test_flash_prologue_matches_plain(cuda_device, layout, dtype):
+    """The prologue's scratch (K's 3xTF32 parts, V^T permuted and padded)
+    equals ``ref.prologue_ref`` bit for bit, for q, k and v read through
+    their strides and one element off their alignment too."""
+    case = (2, 70, 37, 4, 2, 80, True, None, None, None, dtype)
+    q, k, v = _flash_inputs(case, cuda_device, layout)
+    if layout == "misaligned":   # k and v one element off too
+        k, v = (torch.empty(t.numel() + 1, dtype=dtype, device=cuda_device)
+                [1:].view(t.shape).copy_(t) for t in (k, v))
+    elif layout == "strided":    # k and v as slices of a fused kv tensor
+        kv = torch.stack([k, v], 2)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    _, buf = fa._launch(q, k, v, True, None, None, None)
+    torch.cuda.synchronize()
+    scratch = fa.scratch_views(buf, 2, k.shape[1], 2, 80)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for got, want in zip(scratch, fr_attn.prologue_ref(k, v)):
+        assert torch.equal(got.view(bits), want.contiguous().view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_flash_kernel_at_the_ring_edges(cuda_device, hd, dtype):
+    """Sk one short of, equal to and one past one key tile (BK) and NS
+    key tiles (the ring's depth in slabs), causal and not, GQA 2; and
+    windows that end inside a key tile."""
+    p = fa.plan(hd, dtype)
+    for m in (1, p["NS"]):
+        for Sk in (m * p["BK"] - 1, m * p["BK"], m * p["BK"] + 1):
+            _flash_against_plain((1, Sk, Sk, 4, 2, hd, True, None, None,
+                                  None, dtype), cuda_device)
+            _flash_against_plain((2, 100, Sk, 4, 2, hd, False, None, 30.0,
+                                  None, dtype), cuda_device)
+    for window in (37, p["BK"] + 5, 2 * p["BK"] - 1):
+        _flash_against_plain((1, 300, 300, 4, 4, hd, True, window, None,
+                              None, dtype), cuda_device, "misaligned")
+
+
+@pytest.mark.cuda
+def test_flash_kernel_hd256_fp32_long(cuda_device):
+    """hd 256 in fp32 (one consumer warpgroup, K and V in 64-dim slabs)
+    at Sq 4,096: GQA 8/4 with gemma2's softcap, global and local."""
+    for window in (None, 1024):
+        _flash_against_plain((1, 4096, 4096, 8, 4, 256, True, window, 50.0,
+                              256 ** -0.5, torch.float32), cuda_device)
+
+
 # -- C2: the seeded draws on the card equal the CPU draw ---------------------
 
 @pytest.mark.cuda

@@ -11,6 +11,11 @@ against repro on the CPU (inputs from numpy with a seed):
   * the kernel's 3xTF32 tensor-core arithmetic, emulated in plain torch
     (TF32 rounding as ``cvt.rna``), against the plain version (2e-5) and
     fp64 (1e-4 relative L2), and 1xTF32's larger error beside it;
+  * the kernel's tile plan as the wrapper mirrors it (``ops.PLANS``, the
+    ``FLASH_PLAN`` lines of the source): shared memory within the SM's,
+    TMA boxes within their swizzle, 16-byte strides of every scratch;
+    the prologue's plain version: ``split_tf32`` on random and edge
+    values, and ``prologue_ref``'s layout;
   * the wrapper: on the CPU it is the plain version; its autograd
     Function (the kernel forward, the plain version's gradient) driven on
     CPU tensors with the kernel launch replaced by the plain version,
@@ -19,6 +24,7 @@ against repro on the CPU (inputs from numpy with a seed):
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -40,6 +46,7 @@ from repro_torch.configs.reduce import reduce_cfg as treduce  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fo  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fr  # noqa: E402
 from repro_torch.models.transformer import layers as TL  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 
 # the shapes of repro's own kernel suite (tests/test_kernels_flash.py)
 CASES = [
@@ -142,7 +149,7 @@ def _tf32(x):
 
 
 def _mm_tf32(a, b, passes):
-    """a @ b the way the kernel's mma.sync computes it: 3xTF32 sums
+    """a @ b the way the kernel's wgmma computes it: 3xTF32 sums
     a_small b_big + a_big b_small, then a_big b_big (each x split into
     big = tf32(x) and small = tf32(x - big)); 1xTF32 is a_big b_big."""
     a_big, b_big = _tf32(a), _tf32(b)
@@ -244,6 +251,116 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     # strided views (a slice of a fused qkv tensor) are taken as they are
     qkv = torch.zeros(1, 8, 3, 4, 16)
     assert fo._checked(qkv[:, :, 0], k, v) == (1, 8, 8, 4, 2, 16)
+
+
+def _kernel_plans():
+    """The ``FLASH_PLAN(T, HD, C, BK, DC, NS)`` lines of the kernel's
+    source."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    out = {}
+    for m in re.finditer(r"^FLASH_PLAN\((float|__nv_bfloat16), (\d+), "
+                         r"(\d+), (\d+), (\d+), (\d+)\)", src, re.M):
+        dt = torch.float32 if m.group(1) == "float" else torch.bfloat16
+        out[(dt, int(m.group(2)))] = tuple(int(g) for g in m.groups()[2:])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hd", fo.HEAD_DIMS)
+def test_tile_plan_fits_the_card(hd, dtype):
+    """For every built (hd, dtype): the wrapper's plan is the source's;
+    a block's shared memory fits the H100's 232,448 bytes; every TMA box
+    has an inner extent within its swizzle width (a multiple of 16
+    bytes) and at most 256 rows; every scratch row and plane is a
+    multiple of 16 bytes at ragged lengths; the slabs tile hd and the
+    k-steps of 32 bytes tile each swizzle row."""
+    assert _kernel_plans()[(dtype, hd)] == fo.PLANS[(dtype, hd)]
+    p = fo.plan(hd, dtype)
+    e, parts = p["elem"], p["parts"]
+    assert p["smem"] <= fo.SMEM_LIMIT
+    assert p["smem"] == (1024 + p["BQ"] * hd * e * parts
+                         + p["NS"] * p["BK"] * p["DC"] * e * parts + 256)
+    for name, (inner, rows) in p["box"].items():
+        sw = p["swizzle"][name]
+        assert inner * e <= sw and (inner * e) % 16 == 0 and rows <= 256
+        assert sw % 32 == 0          # a k-step (32 bytes) within a row
+    assert hd % p["DC"] == 0 and p["DC"] % p["box"]["k"][0] == 0
+    assert p["BK"] % p["box"]["vt"][0] == 0 and p["DC"] % 8 == 0
+    assert (hd * e) % p["swizzle"]["q"] == 0 and p["swizzle"]["q"] == p[
+        "swizzle"]["k"] == p["box"]["k"][0] * e
+    for S in (1, 7, 8, 9, 63, 65, 416, 32768):
+        for shape in fo.scratch_shapes(2, S, 4, hd, dtype):
+            assert shape[2] == parts
+            assert (shape[-1] * e) % 16 == 0           # row pitch
+            assert (shape[-1] * shape[-2] * e) % 16 == 0   # plane pitch
+        offsets, size = fo.scratch_layout(2, S, 4, hd, dtype)
+        assert all(o * e % 256 == 0 for o in offsets) and size >= offsets[1]
+
+
+EDGE_VALUES = {
+    "random": lambda: torch.from_numpy(np.random.default_rng(3).normal(
+        size=4096).astype(np.float32)) * torch.logspace(-30, 30, 4096),
+    "ties": lambda: torch.tensor([1 + 2**-11, -(1 + 2**-11), 3 * 2**-12
+                                  + 1, 1.5 + 2**-11, 2**-11, 0.0, -0.0]),
+    "subnormals": lambda: torch.tensor(
+        [1e-45, -1e-45, 2.5e-40, -1.17e-38, 5e-39, 1.1754942e-38]),
+    "infinities": lambda: torch.tensor([float("inf"), -float("inf"),
+                                        3.4028235e38, -3.4028235e38,
+                                        3.39e38]),
+}
+
+
+@pytest.mark.parametrize("kind", list(EDGE_VALUES))
+def test_split_tf32_keeps_fp32(kind):
+    """The prologue's split: big rounds to nearest on the 13 low
+    mantissa bits with ties away from zero (``cvt.rna``), so those bits
+    of big and of small are 0, and big + small gives x back within
+    2^-22 |x| (infinities exactly; a finite x past TF32's largest keeps
+    its truncation as big; a subnormal within half the TF32 grid's step
+    there, 2^-137, as TF32 holds no finer subnormal)."""
+    x = EDGE_VALUES[kind]().float()
+    big, small = fr.split_tf32(x)
+    for part in (big, small):
+        assert (part.view(torch.int32) & 0x1FFF == 0).all()
+    assert torch.isfinite(big[torch.isfinite(x)]).all()
+    xd, sd = x.double(), big.double() + small.double()
+    fin = torch.isfinite(x)
+    err = (xd[fin] - sd[fin]).abs()
+    bound = torch.maximum(2.0**-22 * xd[fin].abs(),
+                          torch.full_like(err, 2.0**-137))
+    assert (err <= bound).all(), (x[fin][err > bound], err.max())
+    assert torch.equal(sd[~fin], xd[~fin])
+    if kind == "ties":   # ties round away from zero
+        assert big[0] == 1 + 2**-10 and big[1] == -(1 + 2**-10)
+        assert small[0] == -(2**-11) and big[4] == 2**-11
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_prologue_ref_layout(dtype):
+    """``prologue_ref``: the shapes of ``scratch_shapes``; K's parts sum
+    back to k (exactly for bf16's one part); V^T holds v transposed, fp32's
+    keys in ``VT_PERM`` order within each 8, the keys past Sk zero."""
+    B, Sk, Hkv, hd = 2, 13, 2, 16
+    _, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _mk(B, 4, 4, Hkv, hd, Sk=Sk, seed=4))
+    ks, vts = fr.prologue_ref(k, v)
+    assert [tuple(t.shape) for t in (ks, vts)] == [
+        tuple(s) for s in fo.scratch_shapes(B, Sk, Hkv, hd, dtype)]
+    torch.testing.assert_close(ks.double().sum(2),
+                               k.permute(0, 2, 1, 3).double(),
+                               rtol=2.0**-22, atol=0)
+    vt = vts.double().sum(2)                   # (B, Hkv, hd, Skp)
+    skp = vt.shape[-1]
+    assert skp == 16
+    pos = torch.arange(skp)
+    key = ((pos & ~7) | torch.tensor(fr.VT_PERM)[pos & 7]
+           if dtype == torch.float32 else pos)
+    want = torch.nn.functional.pad(v.permute(0, 2, 3, 1).double(),
+                                   (0, skp - Sk))[..., key]
+    torch.testing.assert_close(vt, want, rtol=2.0**-22, atol=0)
+    assert sorted(fr.VT_PERM) == list(range(8))
 
 
 def test_configs_match_repro():
